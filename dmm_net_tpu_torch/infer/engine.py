@@ -1,0 +1,313 @@
+"""Per-sequence streaming inference engine.
+
+Counterpart of the JAX package's infer/engine.py. The JAX package scans a
+K-frame chunk in one device dispatch; here a chunk is a Python loop over its
+frames, with the frame step's tensors kept on the device and one host copy
+of the labels and assignments at the end of the sequence.
+
+Per frame: paste compact proposals onto the mask grid, run the DMM frame
+step (backbone, fused pooling/cost/Sinkhorn kernel, aggregation, decoder),
+and resolve overlaps into uint8 labels (fused upsample/argmax kernel for
+mask-grid logits).
+
+Not ported yet: the Hungarian decode, ``run_sequence_chunked`` and the
+multi-device mesh (ROADMAP.md §A).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Iterator, Optional
+
+import numpy as np
+import torch
+
+from dmm_net_tpu_torch import resolve_device
+from dmm_net_tpu_torch.config import Config
+from dmm_net_tpu_torch.kernels.resolve import fused_resolve_upsample
+from dmm_net_tpu_torch.models.dmm import DMMNet, _mask_dtype, mask_hw
+from dmm_net_tpu_torch.models.proposal.maskrcnn import paste_masks
+from dmm_net_tpu_torch.ops.resize import resize
+from dmm_net_tpu_torch.weights import load_flax_variables
+
+
+def _grid_like(m: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
+    """Match a host-provided mask stack to the carried template grid."""
+    return resize(m, ref.shape[-2:]).to(ref.dtype)
+
+
+def resolve_overlaps(logits: torch.Tensor, tmpl_valid: torch.Tensor,
+                     bg_threshold: float = 0.5) -> torch.Tensor:
+    """Pixel-wise argmax over background + objects: logits (B, M, H, W) ->
+    uint8 labels (B, H, W), 0 = background (the sigmoid threshold in logit
+    space); ties go to the lower object index, ties with background to
+    background."""
+    bg_logit = math.log(bg_threshold / (1 - bg_threshold))
+    masked = torch.where(tmpl_valid.bool()[..., None, None], logits,
+                         torch.full_like(logits, -1e4))
+    best, idx = masked.max(dim=1)
+    return torch.where(best > bg_logit, idx + 1,
+                       torch.zeros_like(idx)).to(torch.uint8)
+
+
+def resolve_labels(logits: torch.Tensor, tmpl_valid: torch.Tensor,
+                   image_hw) -> torch.Tensor:
+    """Logits at any resolution -> uint8 labels at image_hw. Full-resolution
+    logits take resolve_overlaps; mask-grid logits take the fused
+    upsample + argmax (the CUDA kernel for CUDA tensors, its plain version
+    for CPU tensors)."""
+    if tuple(logits.shape[-2:]) == tuple(image_hw):
+        return resolve_overlaps(logits, tmpl_valid)
+    return fused_resolve_upsample(logits.contiguous(), tmpl_valid,
+                                  tuple(image_hw))
+
+
+_BUCKETS = (1, 2, 4, 8, 16, 32)
+
+
+def bucket_objects(count: int, m_max: int) -> int:
+    """Smallest bucket size >= count (capped at m_max): the decoder's cost
+    is linear in the padded object count."""
+    for b in _BUCKETS:
+        if b >= max(count, 1):
+            return min(b, m_max)
+    return m_max
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md §A, "
+                               f"{item})")
+
+
+class InferenceEngine:
+    """Streaming per-sequence inference on one device.
+
+    ``model``: a DMMNet; built from ``cfg`` with random weights from
+    ``seed`` when omitted. ``variables``: optional JAX-package checkpoint
+    variables ({"params", "batch_stats"} as nested numpy dicts), loaded
+    into the model. Runs on CUDA unless ``device`` says otherwise."""
+
+    def __init__(self, cfg: Config, model: Optional[DMMNet] = None,
+                 variables=None, update_templates: bool = True,
+                 bucket_templates: bool = True, mesh=None, device=None,
+                 seed: int = 0):
+        if mesh is not None:
+            raise _not_ported("the multi-device mesh", "item 9")
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.model = model if model is not None else DMMNet(
+            cfg, device=self.device, seed=seed)
+        if variables is not None:
+            load_flax_variables(self.model, variables)
+        self.update_templates = update_templates
+        self.bucket_templates = bucket_templates
+
+    # -- host <-> device ---------------------------------------------------
+    def _t(self, x) -> torch.Tensor:
+        if isinstance(x, torch.Tensor):
+            return x.to(self.device)
+        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+
+    def _bucket_slice(self, tmpl_masks, tmpl_valid, extras=()):
+        """Slice template arrays down to the active-object bucket (valid
+        slots must be contiguous from 0; otherwise nothing is sliced)."""
+        M = tmpl_valid.shape[1]
+        if not self.bucket_templates:
+            return tmpl_masks, tmpl_valid, extras
+        valid_np = np.asarray(tmpl_valid)
+        count = int(valid_np.sum(axis=1).max())
+        if not all((v[:v.sum()].all() and not v[v.sum():].any())
+                   for v in valid_np):
+            return tmpl_masks, tmpl_valid, extras
+        M_b = bucket_objects(count, M)
+        if M_b >= M:
+            return tmpl_masks, tmpl_valid, extras
+        return (tmpl_masks[:, :M_b], tmpl_valid[:, :M_b],
+                tuple(None if e is None else e[:, :M_b] for e in extras))
+
+    # -- pieces ------------------------------------------------------------
+    def _template_features(self, frame0, tmpl_masks):
+        feats = self.model.extract_features(frame0)
+        return self.model.pool_mask_features(feats, tmpl_masks)
+
+    def _template_features_per_object(self, obj_frames, tmpl_masks):
+        """Pool each object's template features from its own first annotated
+        frame: obj_frames (B, M, H, W, 3), tmpl_masks (B, M, H, W) ->
+        (B, M, D)."""
+        B, M = obj_frames.shape[:2]
+        feats = self.model.extract_features(
+            obj_frames.reshape((B * M,) + tuple(obj_frames.shape[2:])))
+        flat = tmpl_masks.reshape((B * M, 1) + tuple(tmpl_masks.shape[2:]))
+        return self.model.pool_mask_features(feats, flat).reshape(B, M, -1)
+
+    def _resolve(self, logits, tmpl_valid):
+        return resolve_labels(logits, tmpl_valid, self.cfg.model.image_size)
+
+    def _paste(self, boxes, masks28, valid):
+        """Compact proposals (boxes (B, N, 4) in image coordinates, box-local
+        masks (B, N, mh, mw)) -> binary masks on the mask grid."""
+        H, W = self.cfg.model.image_size
+        mh, mw = mask_hw(self.cfg)
+        scale = torch.tensor([mw / W, mh / H, mw / W, mh / H],
+                             dtype=torch.float32, device=boxes.device)
+        return paste_masks(masks28.float(), boxes.float() * scale, valid,
+                           (mh, mw), dtype=_mask_dtype(self.cfg))
+
+    def _frame_step(self, frame, prop_masks, prop_valid, tmpl_feats,
+                    tmpl_valid, state):
+        out, new_state = self.model(frame, prop_masks, prop_valid,
+                                    tmpl_feats, tmpl_valid, state)
+        labels = self._resolve(out.logits, tmpl_valid)
+        if not self.update_templates:
+            new_state = new_state._replace(template_masks=state.template_masks)
+        return labels, out.assignment, new_state
+
+    def _frame_step_compact(self, frame, prop_boxes, prop_masks28, prop_valid,
+                            tmpl_feats, tmpl_valid, state):
+        pm = self._paste(prop_boxes, prop_masks28, prop_valid)
+        return self._frame_step(frame, pm, prop_valid, tmpl_feats, tmpl_valid,
+                                state)
+
+    def _run_chunk(self, step, per_frame, tmpl_feats, tmpl_valid, state, t0,
+                   live_from, tmpl_masks0):
+        """Run ``step`` over the K frames of ``per_frame`` (tensors (K, B, ...))
+        in order. With ``live_from`` (B, M), a slot before its first
+        annotated frame is masked out and keeps its initial template
+        ``tmpl_masks0``. Returns labels (K, B, H, W), assignments
+        (K, B, M, N) and the carried state."""
+        labels, X = [], []
+        for k in range(per_frame[0].shape[0]):
+            valid_t = (tmpl_valid if live_from is None
+                       else tmpl_valid & (t0 + k >= live_from))
+            lab, x, state = step(*(a[k] for a in per_frame), tmpl_feats,
+                                 valid_t, state)
+            if self.update_templates and live_from is not None:
+                state = state._replace(template_masks=torch.where(
+                    valid_t[..., None, None], state.template_masks,
+                    _grid_like(tmpl_masks0, state.template_masks)))
+            labels.append(lab)
+            X.append(x)
+        return torch.stack(labels), torch.stack(X), state
+
+    def _chunk_step(self, frames, prop_masks, prop_valid, tmpl_feats,
+                    tmpl_valid, state, t0=0, live_from=None, tmpl_masks0=None):
+        """K frames with full-grid proposal masks (K, B, N, h, w)."""
+        return self._run_chunk(self._frame_step,
+                               (frames, prop_masks, prop_valid), tmpl_feats,
+                               tmpl_valid, state, t0, live_from, tmpl_masks0)
+
+    def _chunk_step_compact(self, frames, prop_boxes, prop_masks28, prop_valid,
+                            tmpl_feats, tmpl_valid, state, t0=0,
+                            live_from=None, tmpl_masks0=None):
+        """K frames of compact proposals: boxes + box-local masks cross the
+        host boundary and are pasted on the device frame by frame."""
+        return self._run_chunk(self._frame_step_compact,
+                               (frames, prop_boxes, prop_masks28, prop_valid),
+                               tmpl_feats, tmpl_valid, state, t0, live_from,
+                               tmpl_masks0)
+
+    # -- host loops --------------------------------------------------------
+    @torch.no_grad()
+    def run_sequence(self, frames_iter: Iterator[Dict[str, np.ndarray]],
+                     tmpl_masks: np.ndarray, tmpl_valid: np.ndarray,
+                     first_frame: np.ndarray) -> Dict[str, np.ndarray]:
+        """One frame step per item. Items are {"frame", "prop_masks",
+        "prop_valid"} or the compact {"frame", "prop_boxes", "prop_masks28",
+        "prop_valid"}. Returns labels (T, B, H, W) uint8 and assignments
+        (T, B, M, N) padded back to M_max."""
+        if self.cfg.matching.decode == "hungarian":
+            raise _not_ported("matching.decode='hungarian'",
+                              "next: PGD/Hungarian paths")
+        M_full = tmpl_valid.shape[1]
+        tmpl_masks, tmpl_valid, _ = self._bucket_slice(
+            np.asarray(tmpl_masks), np.asarray(tmpl_valid))
+        tmpl_masks, tmpl_valid = self._t(tmpl_masks), self._t(tmpl_valid)
+        tmpl_feats = self._template_features(self._t(first_frame), tmpl_masks)
+        state = self.model.init_state(tmpl_masks)
+        labels_out, assign_out = [], []
+        for item in frames_iter:
+            if "prop_boxes" in item:
+                labels, X, state = self._frame_step_compact(
+                    self._t(item["frame"]), self._t(item["prop_boxes"]),
+                    self._t(item["prop_masks28"]), self._t(item["prop_valid"]),
+                    tmpl_feats, tmpl_valid, state)
+            else:
+                labels, X, state = self._frame_step(
+                    self._t(item["frame"]), self._t(item["prop_masks"]),
+                    self._t(item["prop_valid"]), tmpl_feats, tmpl_valid, state)
+            labels_out.append(labels)
+            assign_out.append(X)
+        return self._gather(labels_out, assign_out, M_full)
+
+    @staticmethod
+    def _gather(labels_out, assign_out, M_full):
+        labels = torch.stack(labels_out).cpu().numpy()
+        assignments = torch.stack(assign_out).cpu().numpy()
+        if assignments.shape[2] < M_full:      # pad bucketed slots back
+            assignments = np.pad(assignments, ((0, 0), (0, 0),
+                                               (0, M_full - assignments.shape[2]),
+                                               (0, 0)))
+        return {"labels": labels, "assignments": assignments}
+
+    @torch.no_grad()
+    def run_stream_chunked(self, frames_iter: Iterator[Dict[str, np.ndarray]],
+                           tmpl_masks: np.ndarray, tmpl_valid: np.ndarray,
+                           first_frame: np.ndarray, chunk: int = 8,
+                           live_from: Optional[np.ndarray] = None,
+                           tmpl_frames: Optional[np.ndarray] = None
+                           ) -> Dict[str, np.ndarray]:
+        """Consume the per-frame item stream ``chunk`` frames at a time (only
+        one chunk of proposals is host-resident). Mid-video objects: pass
+        ``live_from`` (B, M) first-frame indices and ``tmpl_frames``
+        (B, M, H, W, 3) per-object template frames."""
+        if self.cfg.matching.decode == "hungarian":
+            raise ValueError(
+                "run_stream_chunked cannot apply matching.decode='hungarian' "
+                "(host-side two-phase decode); use run_sequence")
+        M_full = tmpl_valid.shape[1]
+        tmpl_masks, tmpl_valid, (live_from, tmpl_frames) = \
+            self._bucket_slice(np.asarray(tmpl_masks), np.asarray(tmpl_valid),
+                               extras=(live_from, tmpl_frames))
+        tmpl_masks, tmpl_valid = self._t(tmpl_masks), self._t(tmpl_valid)
+        if tmpl_frames is not None:
+            tmpl_feats = self._template_features_per_object(
+                self._t(tmpl_frames), tmpl_masks)
+        else:
+            tmpl_feats = self._template_features(self._t(first_frame),
+                                                 tmpl_masks)
+        state = self.model.init_state(tmpl_masks)
+        live = (None if live_from is None
+                else self._t(np.asarray(live_from, np.int64)))
+        labels_out, assign_out = [], []
+        buf: list = []
+        t_seen = 0
+
+        def flush():
+            nonlocal state, t_seen
+            if not buf:
+                return
+
+            def stack(key):
+                return self._t(np.stack([b[key] for b in buf]))
+
+            if "prop_boxes" in buf[0]:
+                labels, X, state = self._chunk_step_compact(
+                    stack("frame"), stack("prop_boxes"), stack("prop_masks28"),
+                    stack("prop_valid"), tmpl_feats, tmpl_valid, state,
+                    t_seen, live, tmpl_masks if live is not None else None)
+            else:
+                labels, X, state = self._chunk_step(
+                    stack("frame"), stack("prop_masks"), stack("prop_valid"),
+                    tmpl_feats, tmpl_valid, state, t_seen, live,
+                    tmpl_masks if live is not None else None)
+            labels_out.extend(labels.unbind(0))
+            assign_out.extend(X.unbind(0))
+            t_seen += len(buf)
+            buf.clear()
+
+        for item in frames_iter:
+            buf.append(item)
+            if len(buf) == chunk:
+                flush()
+        flush()
+        return self._gather(labels_out, assign_out, M_full)

@@ -1,0 +1,13 @@
+"""Hand-written CUDA kernels for Hopper (sm_90a), each beside its plain
+PyTorch version. Built at first use from ``csrc/`` (see ``_build``)."""
+
+from dmm_net_tpu_torch.kernels._build import (build_all, launch_counts,
+                                              reset_launch_counts)
+from dmm_net_tpu_torch.kernels.matcher import (fused_pool_cost_match,
+                                               pool_cost_match_plain)
+from dmm_net_tpu_torch.kernels.resolve import (fused_resolve_upsample,
+                                               resolve_upsample_plain)
+
+__all__ = ["build_all", "launch_counts", "reset_launch_counts",
+           "fused_pool_cost_match", "pool_cost_match_plain",
+           "fused_resolve_upsample", "resolve_upsample_plain"]

@@ -1,0 +1,117 @@
+"""Fused feature pooling + cost matrix + Sinkhorn: one CUDA kernel pair per
+frame step.
+
+Replaces the TPU kernel ``_fused_pool_cost_match`` (its body
+``_pool_matcher_kernel``) in dmm_net_tpu/kernels/matcher.py. The CUDA
+source is ``csrc/matcher.cu``; its header says how the work is split and
+what bounds it on the card (bytes: ~49 MB read at p3 B=16, ~15 us at
+3.35 TB/s). Forward only: serving needs no gradient, and the backward
+comes with the training slice as a ``torch.autograd.Function``.
+
+``fused_pool_cost_match`` launches the kernel for CUDA tensors (or raises)
+and runs ``pool_cost_match_plain`` for CPU tensors. The plain version is
+the same function written with the port's ops: it serves the CPU tests and
+the on-card comparison.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from dmm_net_tpu_torch.kernels import _build
+from dmm_net_tpu_torch.ops.cost import cost_matrix
+from dmm_net_tpu_torch.ops.matching import sinkhorn_match
+
+_MAX_M = 64     # csrc/matcher.cu: M * 16 proposals per block <= 4 * 256 threads
+
+
+def pool_cost_match_plain(emb, prop_masks_pool, tmpl_masks_cost,
+                          prop_masks_cost, tmpl_feats, row_mask, col_mask,
+                          epsilon: float = 0.05, iters: int = 30,
+                          iou_weight: float = 0.3,
+                          epsilon_init: Optional[float] = None) -> torch.Tensor:
+    """Plain PyTorch version of the fused kernel (same shapes)."""
+    rm = row_mask if row_mask.dtype == torch.bool else row_mask > 0.5
+    cm = col_mask if col_mask.dtype == torch.bool else col_mask > 0.5
+    pmp = prop_masks_pool.float()
+    pooled = pmp @ emb.float()
+    pf = pooled / pmp.sum(-1, keepdim=True).clamp_min(1e-6)
+    C = cost_matrix(tmpl_masks_cost, prop_masks_cost, tmpl_feats, pf,
+                    row_mask=rm, col_mask=cm, iou_weight=iou_weight)
+    return sinkhorn_match(C, rm, cm, epsilon=epsilon, iters=iters,
+                          epsilon_init=epsilon_init)
+
+
+def fused_pool_cost_match(emb: torch.Tensor, prop_masks_pool: torch.Tensor,
+                          tmpl_masks_cost: torch.Tensor,
+                          prop_masks_cost: torch.Tensor,
+                          tmpl_feats: torch.Tensor,
+                          row_mask: torch.Tensor, col_mask: torch.Tensor,
+                          epsilon: float = 0.05, iters: int = 30,
+                          iou_weight: float = 0.3,
+                          epsilon_init: Optional[float] = None) -> torch.Tensor:
+    """Feature pooling + cost + Sinkhorn.
+
+    emb (B, P, D) flattened embedding map; prop_masks_pool (B, N, P)
+    proposal masks at the embedding grid; tmpl_masks_cost (B, M, Pc) and
+    prop_masks_cost (B, N, Pc) masks at the cost-IoU grid; tmpl_feats
+    (B, M, D); row_mask (B, M), col_mask (B, N) validity. Float inputs must
+    be float32 and contiguous. Returns X (B, M, N) float32 with padded rows
+    and columns exactly 0.
+    """
+    B, P, D = emb.shape
+    M, Pc = tmpl_masks_cost.shape[1:]
+    N = prop_masks_pool.shape[1]
+    shapes = {"emb": (emb, (B, P, D)),
+              "prop_masks_pool": (prop_masks_pool, (B, N, P)),
+              "tmpl_masks_cost": (tmpl_masks_cost, (B, M, Pc)),
+              "prop_masks_cost": (prop_masks_cost, (B, N, Pc)),
+              "tmpl_feats": (tmpl_feats, (B, M, D)),
+              "row_mask": (row_mask, (B, M)), "col_mask": (col_mask, (B, N))}
+    for name, (t, want) in shapes.items():
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {want}")
+        if t.device != emb.device:
+            raise ValueError(f"{name} is on {t.device}, emb on {emb.device}")
+    if emb.device.type == "cpu":
+        return pool_cost_match_plain(
+            emb, prop_masks_pool, tmpl_masks_cost, prop_masks_cost,
+            tmpl_feats, row_mask, col_mask, epsilon=epsilon, iters=iters,
+            iou_weight=iou_weight, epsilon_init=epsilon_init)
+    if emb.device.type != "cuda":
+        raise ValueError(f"fused_pool_cost_match: unsupported device {emb.device}")
+    for name, (t, _) in shapes.items():
+        if name.endswith("_mask"):
+            continue
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name}: needs contiguous float32, got {t.dtype}"
+                             f" (contiguous={t.is_contiguous()})")
+    if not 1 <= M <= _MAX_M:
+        raise ValueError(f"fused_pool_cost_match: M={M} outside [1, {_MAX_M}]")
+
+    rm = row_mask.to(torch.float32).contiguous()
+    cm = col_mask.to(torch.float32).contiguous()
+    pf = torch.empty((B, N, D), dtype=torch.float32, device=emb.device)
+    cost = torch.empty((B, M, N), dtype=torch.float32, device=emb.device)
+    X = torch.empty((B, M, N), dtype=torch.float32, device=emb.device)
+    anneal = epsilon_init is not None and epsilon_init > epsilon
+    log_decay = 0.0
+    if anneal:
+        steps = max(int(iters * 0.7), 1)
+        log_decay = math.log((epsilon / epsilon_init) ** (1.0 / steps))
+    lib = _build.library("matcher")
+    with torch.cuda.device(emb.device):
+        err = lib.dmm_fused_pool_cost_match(
+            emb.data_ptr(), prop_masks_pool.data_ptr(),
+            tmpl_masks_cost.data_ptr(), prop_masks_cost.data_ptr(),
+            tmpl_feats.data_ptr(), rm.data_ptr(), cm.data_ptr(), pf.data_ptr(),
+            cost.data_ptr(), X.data_ptr(), B, M, N, P, Pc, D, float(epsilon),
+            int(iters), float(iou_weight), int(anneal),
+            float(epsilon_init or 0.0), float(log_decay),
+            torch.cuda.current_stream(emb.device).cuda_stream)
+    _build.check(err, "fused_pool_cost_match")
+    _build.count("fused_pool_cost_match")
+    return X

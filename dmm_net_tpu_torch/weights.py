@@ -1,0 +1,94 @@
+"""Weight bridge: JAX-package checkpoint variables -> the port's state_dict.
+
+The JAX package saves ``{"params": ..., "batch_stats": ...}`` as nested
+dicts (flax msgpack blobs carry them under "variables"). The port's module
+tree mirrors the flax tree, so the bridge is a rename plus layout changes:
+
+  * conv kernels HWIO -> OIHW; ``nn.Dense`` kernels (in, out) -> (out, in);
+  * ``scale`` -> ``weight``; batch stats ``mean``/``var`` ->
+    ``running_mean``/``running_var``;
+  * ``BasicBlock_i``/``BottleneckBlock_i`` -> ``blocks.i``, ``Conv_k`` ->
+    ``conv{k}``, ``BatchNorm_k`` -> ``bn{k}``; every other name (``gate_z``,
+    ``gate_r``, ``cand``, ``obj_head``, ...) is kept. Fused-conv parameter
+    holders map whole.
+
+It is strict in both directions: a source leaf that does not map raises,
+and against a model, a parameter or buffer left unfilled, a key left over,
+or a shape that differs raises.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, Iterator, Optional, Tuple
+
+import numpy as np
+import torch
+
+_RENAMES = ((re.compile(r"^(?:BasicBlock|BottleneckBlock)_(\d+)$"), r"blocks.\1"),
+            (re.compile(r"^Conv_(\d+)$"), r"conv\1"),
+            (re.compile(r"^BatchNorm_(\d+)$"), r"bn\1"))
+_LEAVES = {"params": {"kernel": "weight", "bias": "bias", "scale": "weight"},
+           "batch_stats": {"mean": "running_mean", "var": "running_var"}}
+
+
+def _walk(tree, path=()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
+    for k, v in tree.items():
+        if hasattr(v, "items"):
+            yield from _walk(v, path + (str(k),))
+        else:
+            yield path + (str(k),), np.asarray(v)
+
+
+def _module_name(part: str) -> str:
+    for pat, repl in _RENAMES:
+        if pat.match(part):
+            return pat.sub(repl, part)
+    return part
+
+
+def convert_flax_variables(variables, model: Optional[torch.nn.Module] = None
+                           ) -> Dict[str, torch.Tensor]:
+    """{"params", "batch_stats"} nested numpy dicts -> float32 state_dict.
+    With ``model``, also checks that the keys and shapes are exactly the
+    model's parameters and buffers."""
+    extra = set(variables) - set(_LEAVES)
+    if extra:
+        raise KeyError(f"unknown variable collections {sorted(extra)}")
+    sd: Dict[str, torch.Tensor] = {}
+    for coll, leaves in _LEAVES.items():
+        for path, arr in _walk(variables.get(coll, {})):
+            leaf = path[-1]
+            if leaf not in leaves:
+                raise KeyError(f"{coll}/{'/'.join(path)}: no mapping for "
+                               f"leaf {leaf!r}")
+            if leaf == "kernel":
+                if arr.ndim == 4:
+                    arr = arr.transpose(3, 2, 0, 1)          # HWIO -> OIHW
+                elif arr.ndim == 2:
+                    arr = arr.T                              # (in, out) -> (out, in)
+                else:
+                    raise ValueError(f"{coll}/{'/'.join(path)}: kernel of "
+                                     f"rank {arr.ndim}")
+            key = ".".join([_module_name(p) for p in path[:-1]] + [leaves[leaf]])
+            if key in sd:
+                raise KeyError(f"{coll}/{'/'.join(path)} maps onto {key!r} twice")
+            sd[key] = torch.tensor(arr, dtype=torch.float32)
+    if model is not None:
+        want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+        missing = sorted(set(want) - set(sd))
+        left = sorted(set(sd) - set(want))
+        if missing or left:
+            raise KeyError(f"weight bridge: unfilled in the model {missing}; "
+                           f"left over from the checkpoint {left}")
+        bad = [(k, tuple(sd[k].shape), want[k]) for k in want
+               if tuple(sd[k].shape) != want[k]]
+        if bad:
+            raise ValueError(f"weight bridge: shape mismatches {bad}")
+    return sd
+
+
+def load_flax_variables(model: torch.nn.Module, variables) -> None:
+    """Load JAX-package variables into ``model`` (strict)."""
+    sd = convert_flax_variables(variables, model)
+    model.load_state_dict(sd, strict=True)

@@ -1,0 +1,84 @@
+"""The port's CUDA kernels against their plain PyTorch versions on a card.
+
+Marked ``cuda``: they skip without a CUDA device and nvcc. The file imports
+no JAX, so on a machine without JAX it runs with the repository's conftest
+left out:
+
+    python -m pytest tests/test_torch_port_cuda.py -m cuda --noconftest -q
+"""
+
+import pytest
+import torch
+
+from dmm_net_tpu_torch.kernels import _build
+from dmm_net_tpu_torch.kernels.matcher import (fused_pool_cost_match,
+                                               pool_cost_match_plain)
+from dmm_net_tpu_torch.kernels.resolve import (fused_resolve_upsample,
+                                               resolve_upsample_plain)
+
+
+@pytest.fixture
+def cuda_kernels():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    try:
+        _build.nvcc_path()
+    except RuntimeError:
+        pytest.skip("needs nvcc")
+    _build.build_all()
+
+
+def _matcher_problem(gen, B, M, N, P, D, Pc):
+    dev = "cuda"
+    emb = torch.randn(B, P, D, device=dev, generator=gen)
+    pm_pool = (torch.rand(B, N, P, device=dev, generator=gen) > 0.6).float()
+    tm = (torch.rand(B, M, Pc, device=dev, generator=gen) > 0.6).float()
+    pm = (torch.rand(B, N, Pc, device=dev, generator=gen) > 0.6).float()
+    tf = torch.randn(B, M, D, device=dev, generator=gen)
+    rm = torch.rand(B, M, device=dev, generator=gen) > 0.25
+    rm[:, 0] = True
+    cm = torch.rand(B, N, device=dev, generator=gen) > 0.2
+    return emb, pm_pool, tm, pm, tf, rm, cm
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(4, 16, 128, 448, 256, 4096),   # p3
+                                   (2, 32, 256, 448, 256, 4096),   # p4
+                                   (3, 5, 19, 37, 24, 300)])       # unaligned
+@pytest.mark.parametrize("eps_init", [None, 0.5])
+def test_cuda_matcher_matches_plain(cuda_kernels, shape, eps_init):
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    arrs = _matcher_problem(gen, *shape)
+    got = fused_pool_cost_match(*arrs, epsilon_init=eps_init)
+    want = pool_cost_match_plain(*arrs, epsilon_init=eps_init)
+    torch.testing.assert_close(got, want, atol=2e-4, rtol=0)
+    rm, cm = arrs[5], arrs[6]
+    assert (got[~rm] == 0).all()
+    assert (got.transpose(1, 2)[~cm] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_resolve_matches_plain(cuda_kernels, dtype):
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    lg = torch.randn(4, 16, 64, 112, device="cuda", generator=gen) * 3
+    v = torch.rand(4, 16, device="cuda", generator=gen) > 0.3
+    v[:, 0] = True
+    lg[~v] = 50.0                       # invalid slots carry the largest logits
+    got = fused_resolve_upsample(lg.to(dtype), v, (256, 448))
+    want = resolve_upsample_plain(lg.to(dtype), v, (256, 448))
+    assert got.dtype == torch.uint8 and got.shape == (4, 256, 448)
+    assert (got != want).float().mean().item() < 1e-3
+
+
+@pytest.mark.cuda
+def test_cuda_wrappers_reject_bad_inputs(cuda_kernels):
+    lg = torch.randn(1, 3, 8, 8, device="cuda").half()
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        fused_resolve_upsample(lg, torch.ones(1, 3, dtype=torch.bool,
+                                              device="cuda"), (16, 16))
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    arrs = list(_matcher_problem(gen, 1, 4, 8, 16, 8, 64))
+    arrs[0] = arrs[0].transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_pool_cost_match(*arrs)
