@@ -6,15 +6,24 @@
 Phases, each fatal on failure:
   1. require CUDA; print the card's name and power limit (nvidia-smi);
   2. build every CUDA kernel from csrc/ (one nvcc per source, in parallel);
-  3. hold each kernel against its plain PyTorch version at the p3 shapes
-     (and B1 at the p4 shapes) and time both with CUDA events, over enough
-     input copies that every launch reads from device memory, not L2;
+  3. hold each kernel against its plain PyTorch version and time both, over
+     enough input copies that every launch reads from device memory, not
+     L2: B1 and B2 at the p3 shapes (B1 also at p4), B3 at B=16/P=4096,
+     unaligned and p4 sizes, B4 at every detector level at 256x448 with
+     K=128 boxes (border and sub-pixel boxes included), 7x7 and 14x14;
   4. drive the p3_multi_object streaming path at full width (ResNet-50,
      256x448, M=16, N=128, B=4, K=8, three chunks; seeded random weights)
      through InferenceEngine.run_stream_chunked with every launch counter
      set to 0 just before and read just after;
+  4b. drive the detector path: the full-width Mask R-CNN (R-50-FPN, 81
+     classes, 256x448, pre/post/max 256/128/128, float32, seeded random
+     weights, score_thresh 0) on every frame of one K=8 chunk of B=4 noise
+     sequences, its detections fed as compact proposals into the same p3
+     engine; counters set to 0 just before and read just after; then one
+     detector image under torch.profiler;
   5. run a small float32 configuration on the card and on the CPU (plain
-     versions only) with the same weights and inputs, and compare.
+     versions only) with the same weights and inputs, and compare; the
+     same for a small detector (R-18, 64x128, 8 classes).
 
 Prints one JSON line {"kernels": [...]} with each kernel's launches, error,
 time, plain-version time and bound, then the nvidia-smi line, then
@@ -229,15 +238,121 @@ def check_resolve(name, B, M, h, w, H, W):
             "bound_by": b_by}
 
 
+def check_cost_match(name, shape, iters=30, timed=True):
+    """B3 at (B, M, N, P, D): random binary masks, unit-variance features,
+    ~80% valid rows and columns."""
+    import torch
+    from dmm_net_tpu_torch.kernels.matcher import (cost_match_plain,
+                                                   fused_cost_match)
+    B, M, N, P, D = shape
+    gen = torch.Generator(device="cuda").manual_seed(13)
+
+    def make():
+        dev = "cuda"
+        rm = torch.rand(B, M, device=dev, generator=gen) > 0.2
+        rm[:, 0] = True
+        return [(torch.rand(B, M, P, device=dev, generator=gen) > 0.7).float(),
+                (torch.rand(B, N, P, device=dev, generator=gen) > 0.7).float(),
+                torch.randn(B, M, D, device=dev, generator=gen),
+                torch.randn(B, N, D, device=dev, generator=gen), rm,
+                torch.rand(B, N, device=dev, generator=gen) > 0.2]
+
+    args = make()
+    got = fused_cost_match(*args, iters=iters)
+    want = cost_match_plain(*args, iters=iters)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    rm, cm = args[4], args[5]
+    pad_zero = bool((got[~rm] == 0).all() and (got.transpose(1, 2)[~cm] == 0).all())
+    log(f"B3 fused_cost_match {name} B,M,N,P,D={shape}: max|dX|={err:.3e} "
+        f"(limit 1e-4), padded entries zero={pad_zero}")
+    if not (err <= 1e-4 and pad_zero and torch.isfinite(got).all()):
+        fail(f"B3 disagrees with its plain version at {name}")
+    if not timed:
+        return None
+    pairs = int((rm[:, :, None] & cm[:, None, :]).sum().item())
+    byts = nbytes(*args) + B * M * N * 4                    # + X written
+    ops = (2 * B * M * N * P + B * (M + N) * P     # intersections + areas
+           + 2 * B * M * N * D + 2 * B * (M + N) * D  # cosine + norms
+           + 10 * (iters + 1) * pairs)              # Sinkhorn row/col LSEs
+    inputs = [args] + [make() for _ in range(copies_for(byts) - 1)]
+    kernel = lambda *a: fused_cost_match(*a, iters=iters)  # noqa: E731
+    ms = device_ms(kernel, inputs, 100, ("cost_kernel", "sinkhorn_kernel"))
+    call = time_ms(kernel, inputs, 200)
+    plain = time_ms(lambda *a: cost_match_plain(*a, iters=iters), inputs, 20)
+    b_ms, b_by = bound_ms(byts, ops)
+    log(f"B3 {name} time: kernel {ms:.4f} ms on the device ({call:.4f} ms per "
+        f"wrapper call), plain {plain:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}: {byts / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP)")
+    return {"max_abs_err": err, "ms": ms, "call_ms": call, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def detector_boxes(gen, K, H, W):
+    """K boxes in image coordinates: most inside the image, an eighth under
+    one pixel wide and high (under one cell at every level), an eighth
+    crossing the left and bottom edges, and one covering the whole image."""
+    import torch
+    dev = "cuda"
+    xy = torch.rand(K, 2, device=dev, generator=gen) * torch.tensor([W, H], device=dev)
+    wh = 1 + torch.rand(K, 2, device=dev, generator=gen) * torch.tensor(
+        [W, H], device=dev) * 0.6
+    b = torch.cat([xy - 0.2 * wh, xy + wh], 1)
+    b[: K // 8, 2:] = b[: K // 8, :2] + 0.4
+    b[K // 8: K // 4, 0] = -12.0
+    b[K // 8: K // 4, 3] = H + 20.0
+    b[-1] = torch.tensor([0.0, 0.0, W, H], device=dev)
+    return b.contiguous()
+
+
+def check_roi_align(level, out_size, K=128, C=256, image=(256, 448)):
+    """B4 on one FPN level of the 256x448 detector at the detector's K and C."""
+    import torch
+    from dmm_net_tpu_torch.kernels.roi_align import roi_align
+    from dmm_net_tpu_torch.ops.roi_pool import roi_align_mxu
+    stride = 2 ** level
+    H, W = -(-image[0] // stride), -(-image[1] // stride)
+    gen = torch.Generator(device="cuda").manual_seed(20 + level)
+    s, scale = 2, 1.0 / stride
+
+    def make():
+        return [torch.randn(C, H, W, device="cuda", generator=gen),
+                detector_boxes(gen, K, *image)]
+
+    args = make()
+    got = roi_align(*args, out_size, s, scale)
+    want = roi_align_mxu(*args, out_size, s, scale)
+    torch.cuda.synchronize()
+    diff = (got - want).abs()
+    err = diff.max().item()
+    excess = (diff - 1e-4 * want.abs()).max().item()
+    name = f"p{level} {H}x{W} -> {out_size[0]}x{out_size[1]}"
+    log(f"B4 roi_align {name} K={K} C={C}: max|d|={err:.3e}, "
+        f"max(|d| - 1e-4|want|)={excess:.3e} (limit 1e-4)")
+    if not (excess <= 1e-4 and torch.isfinite(got).all()):
+        fail(f"B4 disagrees with its plain version at {name}")
+    oh, ow = out_size
+    byts = nbytes(*args) + K * C * oh * ow * 4             # + output written
+    ops = 10 * K * C * oh * ow * s * s                     # 4 taps, 3 lerps per sample
+    inputs = [args] + [make() for _ in range(copies_for(byts) - 1)]
+    kernel = lambda f, b: roi_align(f, b, out_size, s, scale)  # noqa: E731
+    ms = device_ms(kernel, inputs, 100, ("roi_align_kernel",))
+    call = time_ms(kernel, inputs, 200)
+    plain = time_ms(lambda f, b: roi_align_mxu(f, b, out_size, s, scale), inputs, 20)
+    b_ms, b_by = bound_ms(byts, ops)
+    log(f"B4 {name} time: kernel {ms:.4f} ms on the device ({call:.4f} ms per "
+        f"wrapper call), plain {plain:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}: {byts / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP)")
+    return {"max_abs_err": err, "ms": ms, "call_ms": call, "plain_ms": plain,
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
 # ---------------------------------------------------------------------------
 # phase 4/5: the streaming path
 # ---------------------------------------------------------------------------
 
-def make_stream(seed, T, B, M, N, H, W, n_valid):
-    """Host-side inputs as a proposal cache would give them: uint8 frames,
-    boxes + 28x28 box-local masks, frame-1 template masks (disks)."""
-    rng = np.random.RandomState(seed)
-    frames = rng.randint(0, 256, (T, B, H, W, 3)).astype(np.uint8)
+def disk_templates(rng, B, M, H, W, n_valid):
+    """Frame-1 template masks (disks), n_valid[b] valid slots from 0."""
     yy, xx = np.mgrid[:H, :W]
     tmpl = np.zeros((B, M, H, W), np.float32)
     valid = np.zeros((B, M), bool)
@@ -247,6 +362,15 @@ def make_stream(seed, T, B, M, N, H, W, n_valid):
             cy, cx = rng.randint(H // 8, H - H // 8), rng.randint(W // 8, W - W // 8)
             r2 = (rng.uniform(0.03, 0.15) * min(H, W)) ** 2
             tmpl[b, m] = ((yy - cy) ** 2 + (xx - cx) ** 2) < r2
+    return tmpl, valid
+
+
+def make_stream(seed, T, B, M, N, H, W, n_valid):
+    """Host-side inputs as a proposal cache would give them: uint8 frames,
+    boxes + 28x28 box-local masks, frame-1 template masks (disks)."""
+    rng = np.random.RandomState(seed)
+    frames = rng.randint(0, 256, (T, B, H, W, 3)).astype(np.uint8)
+    tmpl, valid = disk_templates(rng, B, M, H, W, n_valid)
     g = np.linspace(-1, 1, 28)
     disk = (g[None] ** 2 + g[:, None] ** 2 < 0.8).astype(np.float32)
     items = []
@@ -300,47 +424,73 @@ def main_path():
         fail(f"valid rows of X sum to 1 +- {row_err:.2e} (> 1e-3)")
     if (X[:, ~valid] != 0).any():
         fail("padded rows of X are not exactly 0")
-    for k, n in counts.items():
-        if n < T:
-            fail(f"kernel {k} launched {n} times in {T} frame steps")
+    for k in ("fused_pool_cost_match", "fused_resolve_upsample"):
+        if counts[k] < T:
+            fail(f"kernel {k} launched {counts[k]} times in {T} frame steps")
     labelled = float((labels > 0).mean())
     log(f"main path: {T} frame steps x B={B} in {secs:.3f} s -> "
         f"{T * B / secs:.1f} frames/s ({T / secs:.2f} frame steps/s), "
         f"launches {counts}, max|rowsum-1|={row_err:.2e}, "
         f"labelled pixels {labelled:.3f}")
     profile_chunk(engine, items[:K], tmpl, valid, frames[0], K)
-    return counts, T * B / secs
+    return counts, T * B / secs, engine
 
 
 def profile_chunk(engine, items, tmpl, valid, frame0, K):
-    """One more chunk under torch.profiler: device busy share (kernel time
-    over wall time; one stream, so kernels do not overlap) and the kernels
-    that take the most device time."""
+    """One more chunk under torch.profiler (see ``profiled``)."""
+    profiled(f"profiled chunk ({K} frame steps)", "step", K,
+             lambda: engine.run_stream_chunked(iter(items), tmpl, valid,
+                                               frame0, chunk=K))
+
+
+def profiled(what, unit, n, fn, ranges=""):
+    """Run ``fn`` once under torch.profiler: device busy share (kernel time
+    over wall time; one stream, so kernels do not overlap), device time by
+    kernel category and the kernels that take the most of it, per ``unit``
+    (``n`` of them in the run). With ``ranges``, also the device time of
+    the record_function ranges whose names start with it."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.run_stream_chunked(iter(items), tmpl, valid, frame0, chunk=K)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     per_name: dict = {}
+    per_range: dict = {}
     n_kernels = 0
     for e in prof.events():
         if e.device_type == DeviceType.CUDA:
+            if getattr(e, "is_user_annotation", False) or (
+                    ranges and e.name.startswith(ranges)):
+                continue        # a range's span on the device timeline, not a kernel
             n_kernels += 1
             per_name[e.name] = per_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    busy = sum(per_name.values())
-    log(f"profiled chunk ({K} frame steps): wall {wall_us / 1e3:.2f} ms, device "
-        f"kernels {busy / 1e3:.2f} ms in {n_kernels} launches -> device busy "
-        f"{busy / wall_us:.3f}, idle {1 - busy / wall_us:.3f}")
+        elif ranges and e.name.startswith(ranges):
+            us = (e.device_time_total if hasattr(e, "device_time_total")
+                  else e.cuda_time_total)
+            dev_us, host_us = per_range.get(e.name, (0.0, 0.0))
+            per_range[e.name] = (dev_us + us, host_us + e.cpu_time_total)
+    busy = max(sum(per_name.values()), 1e-9)
+    log(f"{what}: wall {wall_us / 1e3:.2f} ms, device kernels {busy / 1e3:.2f} ms "
+        f"in {n_kernels} launches -> device busy {busy / wall_us:.3f}, "
+        f"idle {1 - busy / wall_us:.3f}")
     per_cat: dict = {}
     for name, us in per_name.items():
         per_cat[kernel_category(name)] = per_cat.get(kernel_category(name), 0.0) + us
     for cat, us in sorted(per_cat.items(), key=lambda kv: -kv[1]):
-        log(f"  {us / 1e3 / K:8.4f} ms/step {us / busy:6.3f}  [{cat}]")
+        log(f"  {us / 1e3 / n:8.4f} ms/{unit} {us / busy:6.3f}  [{cat}]")
     for name, us in sorted(per_name.items(), key=lambda kv: -kv[1])[:10]:
-        log(f"  {us / 1e3 / K:8.4f} ms/step {us / busy:6.3f}  {name[:110]}")
+        log(f"  {us / 1e3 / n:8.4f} ms/{unit} {us / busy:6.3f}  {name[:110]}")
+    for name, (us, host) in sorted(per_range.items(), key=lambda kv: -kv[1][0]):
+        log(f"  {us / 1e3 / n:8.4f} ms/{unit} {us / busy:6.3f}  range {name} "
+            f"(host {host / 1e3 / n:.4f} ms, {host / wall_us:.3f} of wall)")
+    return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
+            "idle": 1 - busy / wall_us,
+            "ranges_ms": {k: {"device": d / 1e3, "host": h / 1e3}
+                          for k, (d, h) in per_range.items()},
+            "categories_ms": {k: v / 1e3 for k, v in per_cat.items()}}
 
 
 def kernel_category(name: str) -> str:
@@ -350,6 +500,8 @@ def kernel_category(name: str) -> str:
     if any(k in name for k in ("pool_cost_kernel", "sinkhorn_kernel",
                                "resolve_kernel")):
         return "port CUDA kernels B1+B2"
+    if "roi_align_kernel" in name:
+        return "port CUDA kernel B4 (ROI-Align)"
     if "upsample" in n:
         return "resize (antialiased bilinear)"
     if any(k in n for k in ("conv", "cudnn", "xmma", "gemm", "cutlass",
@@ -386,6 +538,111 @@ def small_reference():
         fail("card and CPU disagree on the small float32 run")
 
 
+# ---------------------------------------------------------------------------
+# phase 4b: the detector path, frames -> Mask R-CNN -> compact proposals -> DMM
+# ---------------------------------------------------------------------------
+
+def detector_path(engine):
+    """Full-width detector on every frame of one K=8 chunk of B=4 uint8
+    noise sequences; its detections go as compact proposals into the p3
+    engine (the production two-stage topology)."""
+    import torch
+    from dmm_net_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from dmm_net_tpu_torch.models.proposal import MaskRCNN
+
+    cfg = engine.cfg
+    H, W = cfg.model.image_size
+    M, N = cfg.matching.max_templates, cfg.matching.max_proposals
+    B, K = 4, 8
+    det = MaskRCNN(image_size=(H, W), backbone_name="resnet50", num_classes=81,
+                   pre_nms_top_n=256, post_nms_top_n=128, max_detections=N,
+                   score_thresh=0.0, seed=0, device="cuda")
+    log(f"detector path: Mask R-CNN R-50-FPN float32 {H}x{W}, 81 classes, "
+        f"pre/post/max {det.pre_nms_top_n}/{det.post_nms_top_n}/"
+        f"{det.max_detections}, score_thresh 0; B={B} sequences x K={K} frames")
+    rng = np.random.RandomState(4)
+    frames = rng.randint(0, 256, (K, B, H, W, 3)).astype(np.uint8)
+    tmpl, valid = disk_templates(rng, B, M, H, W, [16, 12, 7, 3])
+
+    def image(f):               # uint8 (H, W, 3) -> (1, 3, H, W) in [0, 1]
+        return (torch.from_numpy(f).to("cuda").permute(2, 0, 1)[None].float()
+                / 255.0)
+
+    det(image(frames[0, 0]))    # warm-up (cuDNN plans, allocator); not counted
+    torch.cuda.synchronize()
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    outs = [[det(image(frames[t, b])) for b in range(B)] for t in range(K)]
+    torch.cuda.synchronize()
+    det_ms = (time.perf_counter() - t0) * 1e3 / (K * B)
+    items = []
+    for t in range(K):
+        o = {k: torch.stack([outs[t][b][k] for b in range(B)]).cpu().numpy()
+             for k in outs[t][0]}
+        for k, v in o.items():
+            if not np.isfinite(v.astype(np.float32)).all():
+                fail(f"detector output {k} at frame {t} is not finite")
+        bx = o["boxes"]
+        if (bx[..., 0] < 0).any() or (bx[..., 1] < 0).any() or \
+                (bx[..., 2] > W).any() or (bx[..., 3] > H).any():
+            fail(f"detector boxes outside the {H}x{W} image at frame {t}")
+        if not o["valid"].any(axis=1).all():
+            fail(f"a frame at t={t} has no valid detection")
+        items.append({"frame": frames[t], "prop_boxes": o["boxes"],
+                      "prop_masks28": o["masks"], "prop_valid": o["valid"]})
+    n_valid = [int(it["prop_valid"].sum()) for it in items]
+    out = engine.run_stream_chunked(iter(items), tmpl, valid, frames[0], chunk=K)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+
+    labels, X = out["labels"], out["assignments"]
+    if labels.shape != (K, B, H, W) or labels.dtype != np.uint8:
+        fail(f"labels {labels.shape} {labels.dtype}, expected {(K, B, H, W)} uint8")
+    if not np.isfinite(X).all() or (X[:, ~valid] != 0).any():
+        fail("assignments from detector proposals not finite, or padded rows not 0")
+    calls = K * B
+    if counts["roi_align"] != 8 * calls:
+        fail(f"roi_align launched {counts['roi_align']} times in {calls} "
+             f"detector calls, expected {8 * calls}")
+    for k in ("fused_pool_cost_match", "fused_resolve_upsample"):
+        if counts[k] < K:
+            fail(f"kernel {k} launched {counts[k]} times in {K} frame steps")
+    log(f"detector path: {calls} detector images at {det_ms:.2f} ms each, "
+        f"valid detections per frame (of {N} per image x {B}) {n_valid}; "
+        f"with the DMM chunk {secs:.3f} s; launches {counts}; labelled pixels "
+        f"{float((labels > 0).mean()):.4f}")
+    prof = profiled("profiled detector image", "image", 1,
+                    lambda: det(image(frames[1, 1])), ranges="detector/")
+    return counts, det_ms, prof
+
+
+def small_detector_reference():
+    """A small float32 detector on the card (B4 kernel, cuDNN) and on the
+    CPU (plain versions), same weights and image."""
+    import torch
+    from dmm_net_tpu_torch.models.proposal import MaskRCNN
+    small = dict(image_size=(64, 128), backbone_name="resnet18", num_classes=8,
+                 pre_nms_top_n=32, post_nms_top_n=16, max_detections=8, seed=5)
+    img = np.random.RandomState(6).rand(1, 3, 64, 128).astype(np.float32)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        det = MaskRCNN(**small, device=dev)
+        outs[dev] = {k: v.cpu().numpy()
+                     for k, v in det(torch.from_numpy(img).to(dev)).items()}
+    a, b = outs["cuda"], outs["cpu"]
+    errs = {k: float(np.abs(a[k] - b[k]).max()) for k in ("boxes", "scores", "masks")}
+    same = bool((a["valid"] == b["valid"]).all() and (a["classes"] == b["classes"]).all())
+    log(f"small detector reference (R-18 64x128, 8 classes, 32/16/8): card vs "
+        f"CPU valid/classes equal={same} ({int(b['valid'].sum())} valid), "
+        f"max|d| boxes {errs['boxes']:.3e} (limit 1e-3), scores "
+        f"{errs['scores']:.3e} (1e-4), masks {errs['masks']:.3e} (1e-4)")
+    if not (same and b["valid"].any() and errs["boxes"] <= 1e-3
+            and errs["scores"] <= 1e-4 and errs["masks"] <= 1e-4):
+        fail("card and CPU disagree on the small detector")
+
+
 def main() -> int:
     if not (ROOT / "dmm_net_tpu_torch" / "csrc").is_dir():
         fail("dmm_net_tpu_torch/ not found next to chip_smoke.py; run it from "
@@ -416,9 +673,22 @@ def main() -> int:
                   eps_init=0.5)
     b2 = check_resolve("p3 B=16", 16, 16, 64, 112, 256, 448)
     check_resolve("p3 B=4", 4, 16, 64, 112, 256, 448)
+    b3 = check_cost_match("B=16 P=4096", (16, 16, 128, 4096, 256))
+    check_cost_match("unaligned", (1, 5, 37, 100, 48), timed=False)
+    check_cost_match("p4", (1, 32, 256, 256, 64), timed=False)
+    b4 = {}
+    for level in (2, 3, 4, 5):
+        for out_size in ((7, 7), (14, 14)):
+            b4[(level, out_size)] = check_roi_align(level, out_size)
+    b4_img = sum(r["ms"] for r in b4.values())
+    b4_img_bound = sum(r["bound_ms"] for r in b4.values())
+    log(f"B4 per detector image (the 8 calls above): kernel {b4_img:.4f} ms, "
+        f"bound {b4_img_bound:.4f} ms")
 
-    counts, fps = main_path()
+    counts, fps, engine = main_path()
+    det_counts, det_ms, det_prof = detector_path(engine)
     small_reference()
+    small_detector_reference()
 
     kernels = [
         dict(name="fused_pool_cost_match", route="cuda",
@@ -431,8 +701,22 @@ def main() -> int:
              replaces="dmm_net_tpu/kernels/resolve.py:117",
              launches=counts["fused_resolve_upsample"], shape="p3 B=16",
              library_ms=None, **b2),
+        dict(name="fused_cost_match", route="cuda",
+             source="dmm_net_tpu_torch/csrc/matcher.cu",
+             replaces="dmm_net_tpu/kernels/matcher.py:170",
+             launches=counts["fused_cost_match"], shape="B=16 M=16 N=128 P=4096 D=256",
+             note="no caller on any path of either package", library_ms=None, **b3),
+        dict(name="roi_align", route="cuda",
+             source="dmm_net_tpu_torch/csrc/roi_align.cu",
+             replaces="dmm_net_tpu/kernels/roi_align.py:65",
+             launches=det_counts["roi_align"], shape="p2 64x112 -> 14x14, K=128 C=256",
+             path="detector (phase 4b); 8 launches per detector image",
+             image_ms=b4_img, image_bound_ms=b4_img_bound, library_ms=None,
+             **b4[(2, (14, 14))]),
     ]
-    print(json.dumps({"kernels": kernels, "frames_per_s": fps}), flush=True)
+    print(json.dumps({"kernels": kernels, "frames_per_s": fps,
+                      "detector_ms_per_image": det_ms,
+                      "detector_profile": det_prof}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

@@ -1,6 +1,7 @@
-// Fused mask pooling + IoU/cosine cost + capped-column log-domain Sinkhorn.
+// Fused mask pooling + IoU/cosine cost + capped-column log-domain Sinkhorn
+// (kernel B1), and the same without the pooling (kernel B3).
 //
-// Replaces the TPU kernel `_fused_pool_cost_match` / `_pool_matcher_kernel`
+// B1 replaces the TPU kernel `_fused_pool_cost_match` / `_pool_matcher_kernel`
 // (dmm_net_tpu/kernels/matcher.py).  Per batch element b:
 //
 //   pf[n]   = pmask_pool[n] @ emb / max(sum(pmask_pool[n]), 1e-6)
@@ -25,6 +26,12 @@
 // iterations, but the Sinkhorn launch uses only B blocks (16 of 132 SMs at
 // p3) and its iterations are latency-bound: that is the part a later change
 // should spread over more SMs.
+//
+// B3 replaces the TPU kernel `_pallas_forward` / `_matcher_kernel` (public
+// `fused_cost_match`, same file): the features arrive pooled, so its first
+// launch, cost_kernel, runs only the cost phase (cost_tile, shared with B1)
+// and its second is the same sinkhorn_kernel at a fixed epsilon.  Bound:
+// bytes, ~40 MB read at B=16, M=16, N=128, P=4096, D=256 (~12 us).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -49,75 +56,23 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__global__ void pool_cost_kernel(const float* __restrict__ emb,        // (B, P, D)
-                                 const float* __restrict__ pmask_pool, // (B, N, P)
-                                 const float* __restrict__ tm,         // (B, M, Pc)
-                                 const float* __restrict__ pm,         // (B, N, Pc)
-                                 const float* __restrict__ tf,         // (B, M, D)
-                                 float* __restrict__ pf,               // (B, N, D) scratch
-                                 float* __restrict__ cost,             // (B, M, N) scratch
-                                 int M, int N, int P, int Pc, int D, float iou_weight) {
-  extern __shared__ float smem[];
-  float* s_a = smem;                         // M x (PT + 1): template tile
-  float* s_b = s_a + M * (PT + 1);           // NT x (PT + 1): proposal tile
-  float* s_rowsum = s_b + NT * (PT + 1);     // NT
-  float* s_tn = s_rowsum + NT;               // M: 1 / |tf[m]|
-  float* s_pn = s_tn + M;                    // NT: 1 / |pf[n]|
-
-  const int b = blockIdx.y;
-  const int n0 = blockIdx.x * NT;
-  const int nt = min(NT, N - n0);
+// Cost columns n0 .. n0 + nt of batch element b from pooled features:
+//   C[m, n] = lam * (1 - IoU(tm[m], pm[n])) + (1 - lam) * (1 - cos(tf[m], pf[n]))
+// with the union floored at 1e-6 and each feature scaled by rsqrt(|f|^2 + 1e-12).
+// pm_b and pf_b point at row n0.  Shared memory: s_a (M x (PT + 1)),
+// s_b (NT x (PT + 1)), s_tn (M), s_pn (NT).  Called by every thread of the block.
+__device__ void cost_tile(const float* __restrict__ tm_b, const float* __restrict__ pm_b,
+                          const float* __restrict__ tf_b, const float* __restrict__ pf_b,
+                          float* __restrict__ cost_b, int M, int N, int n0, int nt, int Pc,
+                          int D, float iou_weight, float* smem) {
+  float* s_a = smem;
+  float* s_b = s_a + M * (PT + 1);
+  float* s_tn = s_b + NT * (PT + 1);
+  float* s_pn = s_tn + M;
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
 
-  const float* emb_b = emb + (size_t)b * P * D;
-  const float* pp_b = pmask_pool + ((size_t)b * N + n0) * P;
-  const float* tm_b = tm + (size_t)b * M * Pc;
-  const float* pm_b = pm + ((size_t)b * N + n0) * Pc;
-  const float* tf_b = tf + (size_t)b * M * D;
-  float* pf_b = pf + ((size_t)b * N + n0) * D;
-
-  // mask areas at the embedding grid (pooling denominators)
-  for (int i = warp; i < NT; i += nwarps) {
-    float s = 0.f;
-    if (i < nt)
-      for (int p = lane; p < P; p += 32) s += pp_b[(size_t)i * P + p];
-    s = warp_sum(s);
-    if (lane == 0) s_rowsum[i] = s;
-  }
-
-  // ---- 1. pooling: pf[i, d] = sum_p pmask[i, p] * emb[p, d] / area --------
-  for (int d0 = 0; d0 < D; d0 += blockDim.x) {
-    const int d = d0 + tid;
-    float acc[NT];
-#pragma unroll
-    for (int i = 0; i < NT; ++i) acc[i] = 0.f;
-    for (int p0 = 0; p0 < P; p0 += PT) {
-      __syncthreads();
-      for (int e = tid; e < NT * PT; e += blockDim.x) {
-        const int i = e / PT, j = e % PT;
-        s_b[i * (PT + 1) + j] =
-            (i < nt && p0 + j < P) ? pp_b[(size_t)i * P + p0 + j] : 0.f;
-      }
-      __syncthreads();
-      if (d < D) {
-        const int pend = min(PT, P - p0);
-        for (int j = 0; j < pend; ++j) {
-          const float e = emb_b[(size_t)(p0 + j) * D + d];
-#pragma unroll
-          for (int i = 0; i < NT; ++i) acc[i] = fmaf(s_b[i * (PT + 1) + j], e, acc[i]);
-        }
-      }
-    }
-    if (d < D) {
-#pragma unroll
-      for (int i = 0; i < NT; ++i)
-        if (i < nt) pf_b[(size_t)i * D + d] = acc[i] / fmaxf(s_rowsum[i], 1e-6f);
-    }
-  }
-  __syncthreads();   // pf rows of this block are visible to all its threads
-
-  // ---- 2. feature norms ---------------------------------------------------
+  // ---- feature norms ------------------------------------------------------
   for (int r = warp; r < M + NT; r += nwarps) {
     const bool is_t = r < M;
     const int i = is_t ? r : r - M;
@@ -134,7 +89,7 @@ __global__ void pool_cost_kernel(const float* __restrict__ emb,        // (B, P,
   }
   __syncthreads();
 
-  // ---- 3. cosine, intersection and areas over the cost grid ---------------
+  // ---- cosine, intersection and areas over the cost grid ------------------
   // Thread pairs: q = tid + r * blockDim.x  ->  (m = q / NT, i = q % NT).
   const int npairs = M * NT;
   float cosv[MAX_PAIRS], inter[MAX_PAIRS], at[MAX_PAIRS], ap[MAX_PAIRS];
@@ -189,11 +144,93 @@ __global__ void pool_cost_kernel(const float* __restrict__ emb,        // (B, P,
       if (i < nt) {
         const float uni = fmaxf(at[r] + ap[r] - inter[r], 1e-6f);
         const float iou = inter[r] / uni;
-        cost[((size_t)b * M + m) * N + n0 + i] =
+        cost_b[(size_t)m * N + n0 + i] =
             iou_weight * (1.f - iou) + (1.f - iou_weight) * (1.f - cosv[r]);
       }
     }
   }
+}
+
+__global__ void pool_cost_kernel(const float* __restrict__ emb,        // (B, P, D)
+                                 const float* __restrict__ pmask_pool, // (B, N, P)
+                                 const float* __restrict__ tm,         // (B, M, Pc)
+                                 const float* __restrict__ pm,         // (B, N, Pc)
+                                 const float* __restrict__ tf,         // (B, M, D)
+                                 float* __restrict__ pf,               // (B, N, D) scratch
+                                 float* __restrict__ cost,             // (B, M, N) scratch
+                                 int M, int N, int P, int Pc, int D, float iou_weight) {
+  extern __shared__ float smem[];
+  float* s_b = smem + M * (PT + 1);                          // cost_tile's proposal tile
+  float* s_rowsum = s_b + NT * (PT + 1) + M + NT;            // after cost_tile's region
+
+  const int b = blockIdx.y;
+  const int n0 = blockIdx.x * NT;
+  const int nt = min(NT, N - n0);
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
+
+  const float* emb_b = emb + (size_t)b * P * D;
+  const float* pp_b = pmask_pool + ((size_t)b * N + n0) * P;
+  float* pf_b = pf + ((size_t)b * N + n0) * D;
+
+  // mask areas at the embedding grid (pooling denominators)
+  for (int i = warp; i < NT; i += nwarps) {
+    float s = 0.f;
+    if (i < nt)
+      for (int p = lane; p < P; p += 32) s += pp_b[(size_t)i * P + p];
+    s = warp_sum(s);
+    if (lane == 0) s_rowsum[i] = s;
+  }
+
+  // ---- pooling: pf[i, d] = sum_p pmask[i, p] * emb[p, d] / area -----------
+  for (int d0 = 0; d0 < D; d0 += blockDim.x) {
+    const int d = d0 + tid;
+    float acc[NT];
+#pragma unroll
+    for (int i = 0; i < NT; ++i) acc[i] = 0.f;
+    for (int p0 = 0; p0 < P; p0 += PT) {
+      __syncthreads();
+      for (int e = tid; e < NT * PT; e += blockDim.x) {
+        const int i = e / PT, j = e % PT;
+        s_b[i * (PT + 1) + j] =
+            (i < nt && p0 + j < P) ? pp_b[(size_t)i * P + p0 + j] : 0.f;
+      }
+      __syncthreads();
+      if (d < D) {
+        const int pend = min(PT, P - p0);
+        for (int j = 0; j < pend; ++j) {
+          const float e = emb_b[(size_t)(p0 + j) * D + d];
+#pragma unroll
+          for (int i = 0; i < NT; ++i) acc[i] = fmaf(s_b[i * (PT + 1) + j], e, acc[i]);
+        }
+      }
+    }
+    if (d < D) {
+#pragma unroll
+      for (int i = 0; i < NT; ++i)
+        if (i < nt) pf_b[(size_t)i * D + d] = acc[i] / fmaxf(s_rowsum[i], 1e-6f);
+    }
+  }
+  __syncthreads();   // pf rows of this block are visible to all its threads
+
+  cost_tile(tm + (size_t)b * M * Pc, pm + ((size_t)b * N + n0) * Pc,
+            tf + (size_t)b * M * D, pf_b, cost + (size_t)b * M * N, M, N, n0, nt, Pc, D,
+            iou_weight, smem);
+}
+
+// Kernel B3's first launch: the cost from already-pooled features.
+__global__ void cost_kernel(const float* __restrict__ tm,   // (B, M, P)
+                            const float* __restrict__ pm,   // (B, N, P)
+                            const float* __restrict__ tf,   // (B, M, D)
+                            const float* __restrict__ pf,   // (B, N, D)
+                            float* __restrict__ cost,       // (B, M, N) scratch
+                            int M, int N, int P, int D, float iou_weight) {
+  extern __shared__ float smem[];
+  const int b = blockIdx.y;
+  const int n0 = blockIdx.x * NT;
+  cost_tile(tm + (size_t)b * M * P, pm + ((size_t)b * N + n0) * P, tf + (size_t)b * M * D,
+            pf + ((size_t)b * N + n0) * D, cost + (size_t)b * M * N, M, N, n0,
+            min(NT, N - n0), P, D, iou_weight, smem);
 }
 
 // Masked log-sum-exp pieces, mirroring the reference:
@@ -276,6 +313,29 @@ __global__ void sinkhorn_kernel(const float* __restrict__ cost,  // (B, M, N)
   }
 }
 
+// Shared memory of one cost tile (cost_tile), plus B1's pooling denominators.
+size_t cost_smem(int M, bool pooling) {
+  return sizeof(float) * ((size_t)M * (PT + 1) + NT * (PT + 1) + M + NT + (pooling ? NT : 0));
+}
+
+int launch_sinkhorn(const float* cost, const float* rm, const float* cm, float* X, int B,
+                    int M, int N, float epsilon, int iters, int anneal, float epsilon_init,
+                    float log_decay, cudaStream_t s) {
+  const size_t smem = sizeof(float) * ((size_t)M * (N + 1) + 2 * (size_t)M + 2 * (size_t)N);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        sinkhorn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  sinkhorn_kernel<<<B, SINK_THREADS, smem, s>>>(cost, rm, cm, X, M, N, epsilon, iters, anneal,
+                                               epsilon_init, log_decay);
+  return static_cast<int>(cudaGetLastError());
+}
+
+bool bad_sizes(int B, int M, int N) {
+  return M < 1 || M * NT > MAX_PAIRS * POOL_THREADS || N < 1 || B < 1;
+}
+
 }  // namespace
 
 extern "C" int dmm_fused_pool_cost_match(
@@ -285,23 +345,28 @@ extern "C" int dmm_fused_pool_cost_match(
     float epsilon, int iters, float iou_weight, int anneal, float epsilon_init,
     float log_decay, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (M < 1 || M * NT > MAX_PAIRS * POOL_THREADS || N < 1 || B < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-
-  const size_t smem1 = sizeof(float) * ((size_t)M * (PT + 1) + NT * (PT + 1) + NT + M + NT);
-  dim3 grid1((N + NT - 1) / NT, B);
-  pool_cost_kernel<<<grid1, POOL_THREADS, smem1, s>>>(
+  if (bad_sizes(B, M, N)) return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid((N + NT - 1) / NT, B);
+  pool_cost_kernel<<<grid, POOL_THREADS, cost_smem(M, true), s>>>(
       emb, pmask_pool, tm, pm, tf, pf_scratch, cost_scratch, M, N, P, Pc, D, iou_weight);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_sinkhorn(cost_scratch, rm, cm, X, B, M, N, epsilon, iters, anneal,
+                         epsilon_init, log_decay, s);
+}
 
-  const size_t smem2 = sizeof(float) * ((size_t)M * (N + 1) + 2 * (size_t)M + 2 * (size_t)N);
-  if (smem2 > 48 * 1024) {
-    err = cudaFuncSetAttribute(sinkhorn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem2));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  sinkhorn_kernel<<<B, SINK_THREADS, smem2, s>>>(cost_scratch, rm, cm, X, M, N, epsilon,
-                                                 iters, anneal, epsilon_init, log_decay);
-  return static_cast<int>(cudaGetLastError());
+// Kernel B3: cost from pooled features, then Sinkhorn at a fixed epsilon.
+extern "C" int dmm_fused_cost_match(const float* tm, const float* pm, const float* tf,
+                                    const float* pf, const float* rm, const float* cm,
+                                    float* cost_scratch, float* X, int B, int M, int N,
+                                    int P, int D, float epsilon, int iters,
+                                    float iou_weight, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bad_sizes(B, M, N)) return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid((N + NT - 1) / NT, B);
+  cost_kernel<<<grid, POOL_THREADS, cost_smem(M, false), s>>>(tm, pm, tf, pf, cost_scratch,
+                                                             M, N, P, D, iou_weight);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return launch_sinkhorn(cost_scratch, rm, cm, X, B, M, N, epsilon, iters, 0, 0.f, 0.f, s);
 }

@@ -28,13 +28,15 @@ from typing import Dict, Iterable
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("matcher", "resolve")
+SOURCES = ("matcher", "resolve", "roi_align")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _LAUNCHES: Dict[str, int] = {"fused_pool_cost_match": 0,
-                             "fused_resolve_upsample": 0}
+                             "fused_resolve_upsample": 0,
+                             "fused_cost_match": 0,
+                             "roi_align": 0}
 
 # C signatures: every pointer and the stream are c_void_p (a bare Python int
 # would be passed as a 32-bit int and cut the pointer).
@@ -43,10 +45,14 @@ _SIGNATURES = {
     "matcher": {
         "dmm_fused_pool_cost_match":
             [_P] * 10 + [_I] * 6 + [_F, _I, _F, _I, _F, _F, _P],
+        "dmm_fused_cost_match": [_P] * 8 + [_I] * 5 + [_F, _I, _F, _P],
     },
     "resolve": {
         "dmm_resolve_upsample_f32": [_P] * 7 + [_I] * 6 + [_F, _P],
         "dmm_resolve_upsample_bf16": [_P] * 7 + [_I] * 6 + [_F, _P],
+    },
+    "roi_align": {
+        "dmm_roi_align": [_P] * 3 + [_I] * 7 + [_F, _P],
     },
 }
 

@@ -1,17 +1,20 @@
-"""Fused feature pooling + cost matrix + Sinkhorn: one CUDA kernel pair per
-frame step.
+"""Cost matrix + Sinkhorn as CUDA kernel pairs: B1 pools the proposal
+features first (one call per frame step), B3 takes them pooled.
 
-Replaces the TPU kernel ``_fused_pool_cost_match`` (its body
-``_pool_matcher_kernel``) in dmm_net_tpu/kernels/matcher.py. The CUDA
-source is ``csrc/matcher.cu``; its header says how the work is split and
-what bounds it on the card (bytes: ~49 MB read at p3 B=16, ~15 us at
-3.35 TB/s). Forward only: serving needs no gradient, and the backward
-comes with the training slice as a ``torch.autograd.Function``.
+B1 ``fused_pool_cost_match`` replaces the TPU kernel
+``_fused_pool_cost_match`` (its body ``_pool_matcher_kernel``) in
+dmm_net_tpu/kernels/matcher.py; B3 ``fused_cost_match`` replaces that
+file's ``_pallas_forward`` (public ``fused_cost_match``). The CUDA source
+is ``csrc/matcher.cu``; its header says how the work is split and what
+bounds it on the card (bytes: ~49 MB read by B1 at p3 B=16, ~15 us at
+3.35 TB/s; ~40 MB by B3 at B=16, P=4096, ~12 us). Forward only: serving
+needs no gradient, and the backward comes with the training slice as a
+``torch.autograd.Function``.
 
-``fused_pool_cost_match`` launches the kernel for CUDA tensors (or raises)
-and runs ``pool_cost_match_plain`` for CPU tensors. The plain version is
-the same function written with the port's ops: it serves the CPU tests and
-the on-card comparison.
+Each wrapper launches its kernel for CUDA tensors (or raises) and runs its
+plain version (``pool_cost_match_plain``, ``cost_match_plain``) for CPU
+tensors. A plain version is the same function written with the port's ops:
+it serves the CPU tests and the on-card comparison.
 """
 
 from __future__ import annotations
@@ -28,14 +31,36 @@ from dmm_net_tpu_torch.ops.matching import sinkhorn_match
 _MAX_M = 64     # csrc/matcher.cu: M * 16 proposals per block <= 4 * 256 threads
 
 
+def _bool(mask: torch.Tensor) -> torch.Tensor:
+    return mask if mask.dtype == torch.bool else mask > 0.5
+
+
+def _check_shapes(shapes, device) -> None:
+    for name, (t, want) in shapes.items():
+        if tuple(t.shape) != want:
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {want}")
+        if t.device != device:
+            raise ValueError(f"{name} is on {t.device}, expected {device}")
+
+
+def _check_cuda_inputs(what, shapes, M) -> None:
+    for name, (t, _) in shapes.items():
+        if name.endswith("_mask"):
+            continue
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name}: needs contiguous float32, got {t.dtype}"
+                             f" (contiguous={t.is_contiguous()})")
+    if not 1 <= M <= _MAX_M:
+        raise ValueError(f"{what}: M={M} outside [1, {_MAX_M}]")
+
+
 def pool_cost_match_plain(emb, prop_masks_pool, tmpl_masks_cost,
                           prop_masks_cost, tmpl_feats, row_mask, col_mask,
                           epsilon: float = 0.05, iters: int = 30,
                           iou_weight: float = 0.3,
                           epsilon_init: Optional[float] = None) -> torch.Tensor:
     """Plain PyTorch version of the fused kernel (same shapes)."""
-    rm = row_mask if row_mask.dtype == torch.bool else row_mask > 0.5
-    cm = col_mask if col_mask.dtype == torch.bool else col_mask > 0.5
+    rm, cm = _bool(row_mask), _bool(col_mask)
     pmp = prop_masks_pool.float()
     pooled = pmp @ emb.float()
     pf = pooled / pmp.sum(-1, keepdim=True).clamp_min(1e-6)
@@ -71,11 +96,7 @@ def fused_pool_cost_match(emb: torch.Tensor, prop_masks_pool: torch.Tensor,
               "prop_masks_cost": (prop_masks_cost, (B, N, Pc)),
               "tmpl_feats": (tmpl_feats, (B, M, D)),
               "row_mask": (row_mask, (B, M)), "col_mask": (col_mask, (B, N))}
-    for name, (t, want) in shapes.items():
-        if tuple(t.shape) != want:
-            raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {want}")
-        if t.device != emb.device:
-            raise ValueError(f"{name} is on {t.device}, emb on {emb.device}")
+    _check_shapes(shapes, emb.device)
     if emb.device.type == "cpu":
         return pool_cost_match_plain(
             emb, prop_masks_pool, tmpl_masks_cost, prop_masks_cost,
@@ -83,15 +104,7 @@ def fused_pool_cost_match(emb: torch.Tensor, prop_masks_pool: torch.Tensor,
             iou_weight=iou_weight, epsilon_init=epsilon_init)
     if emb.device.type != "cuda":
         raise ValueError(f"fused_pool_cost_match: unsupported device {emb.device}")
-    for name, (t, _) in shapes.items():
-        if name.endswith("_mask"):
-            continue
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{name}: needs contiguous float32, got {t.dtype}"
-                             f" (contiguous={t.is_contiguous()})")
-    if not 1 <= M <= _MAX_M:
-        raise ValueError(f"fused_pool_cost_match: M={M} outside [1, {_MAX_M}]")
-
+    _check_cuda_inputs("fused_pool_cost_match", shapes, M)
     rm = row_mask.to(torch.float32).contiguous()
     cm = col_mask.to(torch.float32).contiguous()
     pf = torch.empty((B, N, D), dtype=torch.float32, device=emb.device)
@@ -114,4 +127,60 @@ def fused_pool_cost_match(emb: torch.Tensor, prop_masks_pool: torch.Tensor,
             torch.cuda.current_stream(emb.device).cuda_stream)
     _build.check(err, "fused_pool_cost_match")
     _build.count("fused_pool_cost_match")
+    return X
+
+
+def cost_match_plain(tmpl_masks, prop_masks, tmpl_feats, prop_feats,
+                     row_mask, col_mask, epsilon: float = 0.05,
+                     iters: int = 30, iou_weight: float = 0.3) -> torch.Tensor:
+    """Plain PyTorch version of B3 (same shapes)."""
+    rm, cm = _bool(row_mask), _bool(col_mask)
+    C = cost_matrix(tmpl_masks, prop_masks, tmpl_feats, prop_feats,
+                    row_mask=rm, col_mask=cm, iou_weight=iou_weight)
+    return sinkhorn_match(C, rm, cm, epsilon=epsilon, iters=iters)
+
+
+def fused_cost_match(tmpl_masks: torch.Tensor, prop_masks: torch.Tensor,
+                     tmpl_feats: torch.Tensor, prop_feats: torch.Tensor,
+                     row_mask: torch.Tensor, col_mask: torch.Tensor,
+                     epsilon: float = 0.05, iters: int = 30,
+                     iou_weight: float = 0.3) -> torch.Tensor:
+    """Cost + Sinkhorn from pooled features (B3).
+
+    tmpl_masks (B, M, P), prop_masks (B, N, P) soft masks; tmpl_feats
+    (B, M, D), prop_feats (B, N, D) pooled features; row_mask (B, M),
+    col_mask (B, N) validity. Natural sizes, no padding. Float inputs must
+    be float32 and contiguous. Returns X (B, M, N) float32 with padded rows
+    and columns exactly 0.
+    """
+    B, M, P = tmpl_masks.shape
+    N = prop_masks.shape[1]
+    D = tmpl_feats.shape[2]
+    shapes = {"tmpl_masks": (tmpl_masks, (B, M, P)),
+              "prop_masks": (prop_masks, (B, N, P)),
+              "tmpl_feats": (tmpl_feats, (B, M, D)),
+              "prop_feats": (prop_feats, (B, N, D)),
+              "row_mask": (row_mask, (B, M)), "col_mask": (col_mask, (B, N))}
+    _check_shapes(shapes, tmpl_masks.device)
+    if tmpl_masks.device.type == "cpu":
+        return cost_match_plain(tmpl_masks, prop_masks, tmpl_feats, prop_feats,
+                                row_mask, col_mask, epsilon=epsilon,
+                                iters=iters, iou_weight=iou_weight)
+    if tmpl_masks.device.type != "cuda":
+        raise ValueError(f"fused_cost_match: unsupported device {tmpl_masks.device}")
+    _check_cuda_inputs("fused_cost_match", shapes, M)
+    dev = tmpl_masks.device
+    rm = row_mask.to(torch.float32).contiguous()
+    cm = col_mask.to(torch.float32).contiguous()
+    cost = torch.empty((B, M, N), dtype=torch.float32, device=dev)
+    X = torch.empty((B, M, N), dtype=torch.float32, device=dev)
+    lib = _build.library("matcher")
+    with torch.cuda.device(dev):
+        err = lib.dmm_fused_cost_match(
+            tmpl_masks.data_ptr(), prop_masks.data_ptr(), tmpl_feats.data_ptr(),
+            prop_feats.data_ptr(), rm.data_ptr(), cm.data_ptr(), cost.data_ptr(),
+            X.data_ptr(), B, M, N, P, D, float(epsilon), int(iters),
+            float(iou_weight), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "fused_cost_match")
+    _build.count("fused_cost_match")
     return X

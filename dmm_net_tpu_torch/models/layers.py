@@ -40,6 +40,27 @@ class Conv(nn.Module):
         return y
 
 
+class ConvTranspose(nn.Module):
+    """Transposed conv with kernel ``k`` and stride ``k`` (each input pixel
+    becomes one k x k output block), as flax ``nn.ConvTranspose((k, k),
+    strides=(k, k))`` computes it. ``weight`` is torch's (I, O, kh, kw); the
+    weight bridge flips a flax kernel spatially on the way in, since flax
+    correlates where torch convolves."""
+
+    def __init__(self, cin: int, cout: int, k: int, bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.stride = k
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(cin, cout, k, k, dtype=dtype))
+        self.bias = (nn.Parameter(torch.zeros(cout, dtype=dtype)) if bias
+                     else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv_transpose2d(x.to(self.dtype), self.weight, self.bias,
+                                  self.stride)
+
+
 class FrozenBatchNorm(nn.Module):
     """Inference BatchNorm (running statistics, eps 1e-5) computed in
     float32 and cast to ``dtype``, as flax does."""

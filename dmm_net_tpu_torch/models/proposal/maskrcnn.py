@@ -1,11 +1,223 @@
-"""Mask pasting: box-local (28x28) proposal masks onto the image (or mask)
-grid. The rest of the proposal detector is not ported yet."""
+"""Mask R-CNN (R-50-FPN) proposal detector, inference path, and mask pasting.
+
+Counterpart of the JAX package's models/proposal/maskrcnn.py, NCHW, float32:
+
+    backbone (c2..c5) -> FPN (p2..p6) -> RPN head per level
+      -> per-level top-k -> joint NMS -> post_nms_top_n proposals
+      -> ROI-Align (kernel B4) on every level, select by the FPN level rule
+      -> box head -> best class, class boxes -> class-aware NMS
+      -> ROI-Align -> mask head -> 28x28 mask of the chosen class
+
+Every stage keeps a fixed count with a validity mask, as the reference does,
+so nothing is read back to the host inside ``forward``. Each stage runs in a
+``torch.profiler.record_function`` range named ``detector/<stage>``, so a
+profile splits the device time by stage. ROI-Align runs on all
+four levels and keeps each box's assigned level (8 launches per image: four
+levels for each head), the reference's static-shape design.
+
+Module names are the flax names (``backbone``, ``fpn``, ``rpn``,
+``box_head``, ``mask_head``, ``fc6``, ``conv5_mask``, ...), so the weight
+bridge (weights.py) is a rename.
+"""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
+import torch.nn as nn
+import torch.nn.functional as F
+from torch.profiler import record_function
+
+from dmm_net_tpu_torch import resolve_device
+from dmm_net_tpu_torch.kernels.roi_align import roi_align
+from dmm_net_tpu_torch.models.layers import Conv, ConvTranspose, init_random
+from dmm_net_tpu_torch.models.proposal.anchors import (clip_to_image,
+                                                       decode_boxes,
+                                                       generate_anchors,
+                                                       level_slices)
+from dmm_net_tpu_torch.models.proposal.fpn import FPN
+from dmm_net_tpu_torch.models.resnet import backbone_by_name, feature_dims
+from dmm_net_tpu_torch.ops.nms import nms_boxes
+
+_ROI_LEVELS = ("p2", "p3", "p4", "p5")
+
+
+class RPNHead(nn.Module):
+    """Shared 3x3 conv + objectness / box-delta 1x1 heads, per level."""
+
+    def __init__(self, num_anchors: int = 3, channels: int = 256):
+        super().__init__()
+        self.conv = Conv(channels, channels, 3)
+        self.cls_logits = Conv(channels, num_anchors, 1)
+        self.bbox_pred = Conv(channels, num_anchors * 4, 1)
+
+    def forward(self, x):
+        t = F.relu(self.conv(x))
+        return self.cls_logits(t), self.bbox_pred(t)
+
+
+class BoxHead(nn.Module):
+    """Two FC layers (1024) then class scores and class box deltas. Takes
+    (K, C, 7, 7) and flattens it in (7, 7, C) order, as the flax head does."""
+
+    def __init__(self, num_classes: int = 81, channels: int = 256):
+        super().__init__()
+        self.fc6 = nn.Linear(channels * 7 * 7, 1024)
+        self.fc7 = nn.Linear(1024, 1024)
+        self.cls_score = nn.Linear(1024, num_classes)
+        self.bbox_pred = nn.Linear(1024, num_classes * 4)
+
+    def forward(self, x):
+        x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)
+        x = F.relu(self.fc7(F.relu(self.fc6(x))))
+        return self.cls_score(x), self.bbox_pred(x)
+
+
+class MaskHead(nn.Module):
+    """Four 3x3 convs, a 2x2/s2 transposed conv, and per-class 1x1 logits:
+    (K, C, 14, 14) -> (K, classes, 28, 28)."""
+
+    def __init__(self, num_classes: int = 81, channels: int = 256):
+        super().__init__()
+        for i in range(1, 5):
+            setattr(self, f"mask_fcn{i}", Conv(channels, 256, 3))
+            channels = 256
+        self.conv5_mask = ConvTranspose(256, 256, 2)
+        self.mask_fcn_logits = Conv(256, num_classes, 1)
+
+    def forward(self, x):
+        for i in range(1, 5):
+            x = F.relu(getattr(self, f"mask_fcn{i}")(x))
+        return self.mask_fcn_logits(F.relu(self.conv5_mask(x)))
+
+
+def _multilevel_roi_align(pyramid: Dict[str, torch.Tensor], boxes: torch.Tensor,
+                          out_size: Tuple[int, int]) -> torch.Tensor:
+    """ROI-Align on p2..p5 (one kernel launch each), then keep each box's
+    level floor(4 + log2(sqrt(area) / 224 + 1e-9)) clipped to [2, 5].
+    boxes (K, 4) in image coordinates -> (K, C, oh, ow)."""
+    areas = ((boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1])).clamp_min(1e-6)
+    lvl = torch.floor(4.0 + torch.log2(torch.sqrt(areas) / 224.0 + 1e-9))
+    lvl = lvl.clamp(2, 5).long() - 2
+    stacked = torch.stack([
+        roi_align(pyramid[name][0], boxes, out_size, sampling_ratio=2,
+                  spatial_scale=1.0 / 2 ** (i + 2))
+        for i, name in enumerate(_ROI_LEVELS)])          # (4, K, C, oh, ow)
+    return stacked[lvl, torch.arange(boxes.shape[0], device=boxes.device)]
+
+
+class MaskRCNN(nn.Module):
+    """Single-image inference Mask R-CNN with static output sizes:
+    ``pre_nms_top_n`` candidates per level, ``post_nms_top_n`` proposals,
+    ``max_detections`` detections. Float32 throughout.
+
+    Weights are random from ``seed`` until the caller loads a checkpoint
+    (weights.load_flax_variables). Runs on CUDA unless ``device`` says
+    otherwise."""
+
+    def __init__(self, image_size: Tuple[int, int] = (256, 448),
+                 backbone_name: str = "resnet50", num_classes: int = 81,
+                 pre_nms_top_n: int = 256, post_nms_top_n: int = 128,
+                 max_detections: int = 64, rpn_nms_thresh: float = 0.7,
+                 box_nms_thresh: float = 0.5, score_thresh: float = 0.05,
+                 device=None, seed: int = 0):
+        super().__init__()
+        self.image_size = tuple(image_size)
+        self.num_classes = num_classes
+        self.pre_nms_top_n = pre_nms_top_n
+        self.post_nms_top_n = post_nms_top_n
+        self.max_detections = max_detections
+        self.rpn_nms_thresh = rpn_nms_thresh
+        self.box_nms_thresh = box_nms_thresh
+        self.score_thresh = score_thresh
+        self.backbone = backbone_by_name(backbone_name, dtype=torch.float32)
+        self.fpn = FPN(feature_dims(backbone_name))
+        self.rpn = RPNHead()
+        self.box_head = BoxHead(num_classes)
+        self.mask_head = MaskHead(num_classes)
+        self._slices = level_slices(self.image_size)
+        self.register_buffer("anchors", torch.from_numpy(
+            generate_anchors(self.image_size)), persistent=False)
+        init_random(self, torch.Generator().manual_seed(seed))
+        self.to(resolve_device(device))
+        self.eval()
+        self.requires_grad_(False)
+
+    @property
+    def device(self) -> torch.device:
+        return self.anchors.device
+
+    @torch.no_grad()
+    def forward(self, image: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """image (1, 3, H, W) float in [0, 1] (or whatever distribution the
+        weights were trained on). Returns boxes (D, 4), scores (D,),
+        classes (D,) int64, masks (D, 28, 28) sigmoid, valid (D,) bool, with
+        D = max_detections."""
+        H, W = self.image_size
+        if tuple(image.shape) != (1, 3, H, W):
+            raise ValueError(f"image {tuple(image.shape)}, expected (1, 3, {H}, {W})")
+        with record_function("detector/backbone_fpn"):
+            pyramid = self.fpn(self.backbone(image.float()))
+
+        with record_function("detector/rpn"):
+            # RPN over levels, flattened in (h, w, anchor) order
+            obj, deltas = [], []
+            for name in ("p2", "p3", "p4", "p5", "p6"):
+                logits, d = self.rpn(pyramid[name])
+                obj.append(logits.permute(0, 2, 3, 1).reshape(-1))
+                deltas.append(d.permute(0, 2, 3, 1).reshape(-1, 4))
+            obj = torch.cat(obj)
+            deltas = torch.cat(deltas)
+            # per-level top-k
+            cand = torch.cat([
+                torch.topk(obj[a:b], min(self.pre_nms_top_n, b - a)).indices + a
+                for a, b in self._slices])
+            cand_boxes = clip_to_image(
+                decode_boxes(deltas[cand], self.anchors[cand]), self.image_size)
+            wh_ok = ((cand_boxes[:, 2] - cand_boxes[:, 0] > 1e-3)
+                     & (cand_boxes[:, 3] - cand_boxes[:, 1] > 1e-3))
+
+        with record_function("detector/rpn_nms"):
+            keep_idx, prop_valid = nms_boxes(cand_boxes, obj[cand], wh_ok,
+                                             iou_threshold=self.rpn_nms_thresh,
+                                             max_out=self.post_nms_top_n)
+            proposals = cand_boxes[keep_idx.clamp_min(0)]
+
+        with record_function("detector/box_head"):
+            # best foreground class per proposal, and its box
+            cls_scores, box_deltas = self.box_head(
+                _multilevel_roi_align(pyramid, proposals, (7, 7)))
+            fg_score, best_cls = torch.softmax(cls_scores, -1)[:, 1:].max(-1)
+            best_score = fg_score * prop_valid
+            sel = box_deltas.reshape(-1, self.num_classes, 4).gather(
+                1, (best_cls + 1)[:, None, None].expand(-1, 1, 4))[:, 0]
+            det_boxes = clip_to_image(
+                decode_boxes(sel, proposals, weights=(10., 10., 5., 5.)),
+                self.image_size)
+
+        with record_function("detector/box_nms"):
+            # class-aware NMS: offset each class by the image's H + W so boxes
+            # of different classes never overlap, then one plain NMS
+            offset = (best_cls + 1).float()[:, None] * float(H + W)
+            d_idx, d_mask = nms_boxes(det_boxes + offset, best_score,
+                                      best_score > self.score_thresh,
+                                      iou_threshold=self.box_nms_thresh,
+                                      max_out=self.max_detections)
+            dsafe = d_idx.clamp_min(0)
+            final_boxes = det_boxes[dsafe]
+            final_classes = (best_cls[dsafe] + 1) * d_mask
+
+        with record_function("detector/mask_head"):
+            # the chosen class's mask logits (class 0 for an invalid slot)
+            mask_logits = self.mask_head(
+                _multilevel_roi_align(pyramid, final_boxes, (14, 14)))
+            mh, mw = mask_logits.shape[-2:]
+            masks = mask_logits.gather(
+                1, final_classes[:, None, None, None].expand(-1, 1, mh, mw))[:, 0]
+        return {"boxes": final_boxes, "scores": best_score[dsafe] * d_mask,
+                "classes": final_classes, "masks": torch.sigmoid(masks),
+                "valid": d_mask}
 
 
 def _paste_interp(coord: torch.Tensor, m: int) -> torch.Tensor:

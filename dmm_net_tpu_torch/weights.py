@@ -5,6 +5,11 @@ dicts (flax msgpack blobs carry them under "variables"). The port's module
 tree mirrors the flax tree, so the bridge is a rename plus layout changes:
 
   * conv kernels HWIO -> OIHW; ``nn.Dense`` kernels (in, out) -> (out, in);
+  * ``nn.ConvTranspose`` kernels (kh, kw, I, O) -> (I, O, kh, kw) with the
+    spatial axes flipped (flax correlates, torch's transposed conv
+    convolves). A transposed conv is known by its module type when a model
+    is given, else by name (``_TRANSPOSED``); with I = O a shape check
+    cannot tell the two layouts apart;
   * ``scale`` -> ``weight``; batch stats ``mean``/``var`` ->
     ``running_mean``/``running_var``;
   * ``BasicBlock_i``/``BottleneckBlock_i`` -> ``blocks.i``, ``Conv_k`` ->
@@ -25,9 +30,13 @@ from typing import Dict, Iterator, Optional, Tuple
 import numpy as np
 import torch
 
+from dmm_net_tpu_torch.models.layers import ConvTranspose
+
 _RENAMES = ((re.compile(r"^(?:BasicBlock|BottleneckBlock)_(\d+)$"), r"blocks.\1"),
             (re.compile(r"^Conv_(\d+)$"), r"conv\1"),
             (re.compile(r"^BatchNorm_(\d+)$"), r"bn\1"))
+# Transposed convs of the JAX package's trees, for conversion without a model.
+_TRANSPOSED = frozenset({"conv5_mask"})
 _LEAVES = {"params": {"kernel": "weight", "bias": "bias", "scale": "weight"},
            "batch_stats": {"mean": "running_mean", "var": "running_var"}}
 
@@ -55,6 +64,9 @@ def convert_flax_variables(variables, model: Optional[torch.nn.Module] = None
     extra = set(variables) - set(_LEAVES)
     if extra:
         raise KeyError(f"unknown variable collections {sorted(extra)}")
+    if model is not None:
+        transposed = {name for name, m in model.named_modules()
+                      if isinstance(m, ConvTranspose)}
     sd: Dict[str, torch.Tensor] = {}
     for coll, leaves in _LEAVES.items():
         for path, arr in _walk(variables.get(coll, {})):
@@ -62,18 +74,23 @@ def convert_flax_variables(variables, model: Optional[torch.nn.Module] = None
             if leaf not in leaves:
                 raise KeyError(f"{coll}/{'/'.join(path)}: no mapping for "
                                f"leaf {leaf!r}")
+            module = ".".join(_module_name(p) for p in path[:-1])
             if leaf == "kernel":
-                if arr.ndim == 4:
+                is_t = (module in transposed if model is not None
+                        else path[-2] in _TRANSPOSED)
+                if arr.ndim == 4 and is_t:
+                    arr = arr[::-1, ::-1].transpose(2, 3, 0, 1)  # -> (I, O, kh, kw)
+                elif arr.ndim == 4:
                     arr = arr.transpose(3, 2, 0, 1)          # HWIO -> OIHW
                 elif arr.ndim == 2:
                     arr = arr.T                              # (in, out) -> (out, in)
                 else:
                     raise ValueError(f"{coll}/{'/'.join(path)}: kernel of "
                                      f"rank {arr.ndim}")
-            key = ".".join([_module_name(p) for p in path[:-1]] + [leaves[leaf]])
+            key = f"{module}.{leaves[leaf]}" if module else leaves[leaf]
             if key in sd:
                 raise KeyError(f"{coll}/{'/'.join(path)} maps onto {key!r} twice")
-            sd[key] = torch.tensor(arr, dtype=torch.float32)
+            sd[key] = torch.tensor(np.ascontiguousarray(arr), dtype=torch.float32)
     if model is not None:
         want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
         missing = sorted(set(want) - set(sd))

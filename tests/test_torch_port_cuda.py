@@ -11,10 +11,14 @@ import pytest
 import torch
 
 from dmm_net_tpu_torch.kernels import _build
-from dmm_net_tpu_torch.kernels.matcher import (fused_pool_cost_match,
+from dmm_net_tpu_torch.kernels.matcher import (cost_match_plain,
+                                               fused_cost_match,
+                                               fused_pool_cost_match,
                                                pool_cost_match_plain)
 from dmm_net_tpu_torch.kernels.resolve import (fused_resolve_upsample,
                                                resolve_upsample_plain)
+from dmm_net_tpu_torch.kernels.roi_align import roi_align
+from dmm_net_tpu_torch.ops.roi_pool import roi_align_mxu
 
 
 @pytest.fixture
@@ -82,3 +86,71 @@ def test_cuda_wrappers_reject_bad_inputs(cuda_kernels):
     arrs[0] = arrs[0].transpose(1, 2).contiguous().transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         fused_pool_cost_match(*arrs)
+
+
+def _boxes(gen, K, H, W):
+    """Boxes in image coordinates at the detector's 256x448: most inside,
+    some touching or crossing the border, some under one pixel at p5."""
+    dev = "cuda"
+    xy = torch.rand(K, 2, device=dev, generator=gen) * torch.tensor([W, H], device=dev)
+    wh = 1 + torch.rand(K, 2, device=dev, generator=gen) * torch.tensor(
+        [W, H], device=dev) * 0.6
+    b = torch.cat([xy - 0.2 * wh, xy + wh], 1)
+    b[: K // 8, 2:] = b[: K // 8, :2] + 0.4          # < 1 px at every level
+    b[K // 8: K // 4, 0] = -12.0                     # beyond the left edge
+    b[K // 8: K // 4, 3] = H + 20.0                  # beyond the bottom edge
+    return b.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_size", [(7, 7), (14, 14)])
+@pytest.mark.parametrize("level", [2, 3, 4, 5])
+def test_cuda_roi_align_matches_plain(cuda_kernels, level, out_size):
+    gen = torch.Generator(device="cuda").manual_seed(level)
+    H, W = 256 // 2 ** level, 448 // 2 ** level
+    feats = torch.randn(256, H, W, device="cuda", generator=gen)
+    boxes = _boxes(gen, 128, 256, 448)
+    got = roi_align(feats, boxes, out_size, 2, 1.0 / 2 ** level)
+    want = roi_align_mxu(feats, boxes, out_size, 2, 1.0 / 2 ** level)
+    assert got.shape == (128, 256) + out_size
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 16, 128, 4096, 256),    # B, M, N, P, D
+                                   (1, 5, 37, 100, 48),         # unaligned
+                                   (1, 32, 256, 256, 64)])      # p4's M, N
+def test_cuda_cost_match_matches_plain(cuda_kernels, shape):
+    B, M, N, P, D = shape
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    tm = (torch.rand(B, M, P, device="cuda", generator=gen) > 0.6).float()
+    pm = (torch.rand(B, N, P, device="cuda", generator=gen) > 0.6).float()
+    tf = torch.randn(B, M, D, device="cuda", generator=gen)
+    pf = torch.randn(B, N, D, device="cuda", generator=gen)
+    rm = torch.rand(B, M, device="cuda", generator=gen) > 0.25
+    rm[:, 0] = True
+    cm = torch.rand(B, N, device="cuda", generator=gen) > 0.2
+    got = fused_cost_match(tm, pm, tf, pf, rm, cm)
+    want = cost_match_plain(tm, pm, tf, pf, rm, cm)
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=0)
+    assert (got[~rm] == 0).all()
+    assert (got.transpose(1, 2)[~cm] == 0).all()
+
+
+@pytest.mark.cuda
+def test_cuda_roi_align_rejects_bad_inputs(cuda_kernels):
+    feats = torch.randn(8, 16, 16, device="cuda")
+    boxes = torch.tensor([[1.0, 2.0, 9.0, 12.0]], device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        roi_align(feats.transpose(1, 2), boxes)
+    with pytest.raises(ValueError, match="float32"):
+        roi_align(feats.double(), boxes.double())
+
+
+@pytest.mark.cuda
+def test_cuda_roi_align_without_boxes_launches_nothing(cuda_kernels):
+    _build.reset_launch_counts()
+    out = roi_align(torch.randn(8, 16, 16, device="cuda"),
+                    torch.zeros(0, 4, device="cuda"), (14, 14))
+    assert out.shape == (0, 8, 14, 14)
+    assert _build.launch_counts()["roi_align"] == 0

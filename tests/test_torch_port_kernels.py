@@ -1,5 +1,6 @@
-"""The port's two kernels (dmm_net_tpu_torch/kernels) against the JAX
-package's Pallas kernels run in interpret mode and their jnp references.
+"""The port's matcher and resolve kernels (dmm_net_tpu_torch/kernels)
+against the JAX package's Pallas kernels run in interpret mode and their jnp
+references (ROI-Align, kernel B4, is in tests/test_torch_port_proposal.py).
 
 On the CPU each wrapper runs its kernel's plain PyTorch version (the CUDA
 kernels cannot run here); tests/test_torch_port_cuda.py holds the CUDA
@@ -12,6 +13,7 @@ import torch
 
 import jax.numpy as jnp
 
+from dmm_net_tpu.kernels.matcher import fused_cost_match as jax_fcm
 from dmm_net_tpu.kernels.matcher import fused_pool_cost_match as jax_fpcm
 from dmm_net_tpu.kernels.resolve import (
     _interp_matrix as jax_interp_matrix,
@@ -19,8 +21,11 @@ from dmm_net_tpu.kernels.resolve import (
     resolve_upsample_jnp,
 )
 from dmm_net_tpu_torch.kernels import launch_counts, reset_launch_counts
-from dmm_net_tpu_torch.kernels.matcher import (fused_pool_cost_match,
+from dmm_net_tpu_torch.kernels.matcher import (cost_match_plain,
+                                               fused_cost_match,
+                                               fused_pool_cost_match,
                                                pool_cost_match_plain)
+from dmm_net_tpu_torch.kernels.roi_align import roi_align
 from dmm_net_tpu_torch.kernels.resolve import (_interp_matrix, _taps,
                                                fused_resolve_upsample,
                                                resolve_upsample_plain)
@@ -72,8 +77,54 @@ def test_wrappers_take_plain_version_on_cpu_without_launching():
     v = torch.ones(1, 3, dtype=torch.bool)
     torch.testing.assert_close(fused_resolve_upsample(lg, v, (32, 32)),
                                resolve_upsample_plain(lg, v, (32, 32)))
+    tm, pm, tf, pf, rm, cm = map(torch.from_numpy, _cost_problem(1, B=1, M=3, N=9, n=7))
+    np.testing.assert_array_equal(fused_cost_match(tm, pm, tf, pf, rm, cm).numpy(),
+                                  cost_match_plain(tm, pm, tf, pf, rm, cm).numpy())
+    assert roi_align(torch.randn(4, 8, 8), torch.tensor([[1.0, 1, 5, 6]])).shape \
+        == (1, 4, 7, 7)
     assert launch_counts() == {"fused_pool_cost_match": 0,
-                               "fused_resolve_upsample": 0}
+                               "fused_resolve_upsample": 0,
+                               "fused_cost_match": 0, "roi_align": 0}
+
+
+def _cost_problem(seed, B=2, M=8, N=64, P=256, D=64, m=3, n=20):
+    """tests/test_pallas_matcher.py's planted problem: template i copies a
+    proposal's mask and a lightly noised copy of its feature, so the optimum
+    is well separated."""
+    rng = np.random.RandomState(seed)
+    tm = np.zeros((B, M, P), np.float32)
+    pm = np.zeros((B, N, P), np.float32)
+    tf = np.zeros((B, M, D), np.float32)
+    pf = np.zeros((B, N, D), np.float32)
+    for b in range(B):
+        pm[b, :n] = (rng.rand(n, P) > 0.7).astype(np.float32)
+        pf[b, :n] = rng.randn(n, D).astype(np.float32)
+        pick = rng.permutation(n)[:m]
+        tm[b, :m] = pm[b, pick]
+        tf[b, :m] = pf[b, pick] + 0.05 * rng.randn(m, D).astype(np.float32)
+    rm = np.zeros((B, M), bool)
+    rm[:, :m] = True
+    cm = np.zeros((B, N), bool)
+    cm[:, :n] = True
+    return tm, pm, tf, pf, rm, cm
+
+
+@pytest.mark.parametrize("seed,dims", [
+    (0, dict()),                                               # aligned
+    (1, dict(B=1, M=5, N=37, P=100, D=48, m=2, n=11)),        # unaligned
+    (2, dict(B=1, M=32, N=256, P=256, D=64, m=13, n=70)),     # p4's M, N
+])
+def test_cost_match_plain_matches_pallas_interpret(seed, dims):
+    arrs = _cost_problem(seed, **dims)
+    want = np.asarray(jax_fcm(*map(jnp.asarray, arrs), epsilon=0.05, iters=30,
+                              iou_weight=0.3, interpret=True))
+    got = fused_cost_match(*map(torch.from_numpy, arrs), epsilon=0.05, iters=30,
+                           iou_weight=0.3).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, atol=1e-4)
+    rm, cm = arrs[4], arrs[5]
+    assert (got[~rm] == 0).all()
+    assert (got.transpose(0, 2, 1)[~cm] == 0).all()
 
 
 def test_matcher_wrapper_checks_shapes():
