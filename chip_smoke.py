@@ -8,9 +8,13 @@ Phases, each fatal on failure:
   2. build every CUDA kernel from csrc/ (one nvcc per source, in parallel);
   3. hold each kernel against its plain PyTorch version and time both, over
      enough input copies that every launch reads from device memory, not
-     L2: B1 and B2 at the p3 shapes (B1 also at p4), B3 at B=16/P=4096,
-     unaligned and p4 sizes, B4 at every detector level at 256x448 with
-     K=128 boxes (border and sub-pixel boxes included), 7x7 and 14x14;
+     L2: B1 at p3 B=16 and B=4 (each of its launches' device time, and the
+     Sinkhorn's per iteration), also at p4, annealed and N=100; B2 at the
+     p3 shapes; B3 at B=16/P=4096, unaligned and p4 sizes; B4 multi-level
+     (one launch per head) at the detector's 256x448 pyramid with K=128
+     boxes for the 7x7 box head and the 14x14 mask head, timed per head and
+     per image, plus the single-level form on every level (border and
+     sub-pixel boxes included), 7x7 and 14x14, checked only;
   4. drive the p3_multi_object streaming path at full width (ResNet-50,
      256x448, M=16, N=128, B=4, K=8, three chunks; seeded random weights)
      through InferenceEngine.run_stream_chunked with every launch counter
@@ -43,6 +47,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory (NVIDIA data sheet)
 F32_FLOPS = 67e12               # H100 SXM float32 outside the tensor cores
+B1_KERNELS = ("matcher_pool_kernel", "matcher_cost_kernel", "matcher_sinkhorn_kernel")
 
 
 def log(msg: str) -> None:
@@ -80,10 +85,11 @@ def time_ms(fn, inputs, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, inputs, iters: int, kernel_names) -> float:
+def device_ms(fn, inputs, iters: int, kernel_names):
     """Mean device time per call of the CUDA kernels whose names contain one
-    of ``kernel_names`` (torch.profiler over ``iters`` calls); falls back to
-    CUDA events around the calls when the profiler records no device time."""
+    of ``kernel_names`` (torch.profiler over ``iters`` calls), and that time
+    by name; falls back to CUDA events around the calls (and no split) when
+    the profiler records no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for a in inputs[:3]:
@@ -94,17 +100,19 @@ def device_ms(fn, inputs, iters: int, kernel_names) -> float:
             fn(*inputs[i % len(inputs)])
         torch.cuda.synchronize()
     total_us = 0.0
+    per = {}
     for ev in prof.key_averages():
         hit = [n for n in kernel_names if n in ev.key]
         if hit:
             us = getattr(ev, "device_time_total",
                          getattr(ev, "cuda_time_total", 0.0))
             total_us += us
+            per[hit[0]] = per.get(hit[0], 0.0) + us / 1e3 / iters
             log(f"  {hit[0]}: {us / 1e3 / iters:.4f} ms per call on the device")
     if total_us <= 0:
         log("profiler recorded no device time; timing with CUDA events")
-        return time_ms(fn, inputs, iters)
-    return total_us / 1e3 / iters
+        return time_ms(fn, inputs, iters), {}
+    return total_us / 1e3 / iters, per
 
 
 def copies_for(nbytes: int) -> int:
@@ -186,15 +194,18 @@ def check_matcher(name, shape, iters=30, timed=True, eps_init=None):
     copies = [matcher_inputs(gen, *shape) for _ in range(copies_for(byts) - 1)]
     inputs = [args] + copies
     kernel = lambda *a: fused_pool_cost_match(*a, iters=iters)  # noqa: E731
-    ms = device_ms(kernel, inputs, 100, ("pool_cost_kernel", "sinkhorn_kernel"))
+    ms, per = device_ms(kernel, inputs, 100, B1_KERNELS)
     call = time_ms(kernel, inputs, 200)
     plain = time_ms(lambda *a: pool_cost_match_plain(*a, iters=iters), inputs, 20)
     b_ms, b_by = bound_ms(byts, ops)
+    sink_iter = per.get("matcher_sinkhorn_kernel", float("nan")) / (iters + 1)
     log(f"B1 {name} time: kernel {ms:.4f} ms on the device ({call:.4f} ms per "
         f"wrapper call), plain {plain:.4f} ms, bound {b_ms:.4f} ms "
-        f"({b_by}: {byts / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP)")
+        f"({b_by}: {byts / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP); Sinkhorn "
+        f"{sink_iter * 1e3:.3f} us per iteration ({iters + 1} row passes)")
     return {"max_abs_err": err, "ms": ms, "call_ms": call, "plain_ms": plain,
-            "bound_ms": b_ms, "bound_by": b_by}
+            "bound_ms": b_ms, "bound_by": b_by, "launch_ms": per,
+            "sinkhorn_iter_ms": sink_iter}
 
 
 def check_resolve(name, B, M, h, w, H, W):
@@ -226,7 +237,7 @@ def check_resolve(name, B, M, h, w, H, W):
     byts, ops = resolve_bound(*args, H, W)
     inputs = [args] + [make() for _ in range(copies_for(byts) - 1)]
     kernel = lambda lg, v: fused_resolve_upsample(lg, v, (H, W))  # noqa: E731
-    ms = device_ms(kernel, inputs, 200, ("resolve_kernel",))
+    ms, _ = device_ms(kernel, inputs, 200, ("resolve_kernel",))
     call = time_ms(kernel, inputs, 500)
     plain = time_ms(lambda lg, v: resolve_upsample_plain(lg, v, (H, W)), inputs, 20)
     b_ms, b_by = bound_ms(byts, ops)
@@ -277,7 +288,7 @@ def check_cost_match(name, shape, iters=30, timed=True):
            + 10 * (iters + 1) * pairs)              # Sinkhorn row/col LSEs
     inputs = [args] + [make() for _ in range(copies_for(byts) - 1)]
     kernel = lambda *a: fused_cost_match(*a, iters=iters)  # noqa: E731
-    ms = device_ms(kernel, inputs, 100, ("cost_kernel", "sinkhorn_kernel"))
+    ms, _ = device_ms(kernel, inputs, 100, B1_KERNELS[1:])
     call = time_ms(kernel, inputs, 200)
     plain = time_ms(lambda *a: cost_match_plain(*a, iters=iters), inputs, 20)
     b_ms, b_by = bound_ms(byts, ops)
@@ -306,7 +317,9 @@ def detector_boxes(gen, K, H, W):
 
 
 def check_roi_align(level, out_size, K=128, C=256, image=(256, 448)):
-    """B4 on one FPN level of the 256x448 detector at the detector's K and C."""
+    """B4's single-level form on one FPN level of the 256x448 detector at
+    the detector's K and C (checked, not timed: the detector calls the
+    multi-level form)."""
     import torch
     from dmm_net_tpu_torch.kernels.roi_align import roi_align
     from dmm_net_tpu_torch.ops.roi_pool import roi_align_mxu
@@ -315,30 +328,64 @@ def check_roi_align(level, out_size, K=128, C=256, image=(256, 448)):
     gen = torch.Generator(device="cuda").manual_seed(20 + level)
     s, scale = 2, 1.0 / stride
 
-    def make():
-        return [torch.randn(C, H, W, device="cuda", generator=gen),
-                detector_boxes(gen, K, *image)]
-
-    args = make()
+    args = [torch.randn(C, H, W, device="cuda", generator=gen),
+            detector_boxes(gen, K, *image)]
     got = roi_align(*args, out_size, s, scale)
     want = roi_align_mxu(*args, out_size, s, scale)
+    name = f"p{level} {H}x{W} -> {out_size[0]}x{out_size[1]}"
+    return roi_compare(f"B4 roi_align {name} K={K} C={C}", got, want)
+
+
+def roi_compare(what, got, want):
+    """max |d| and the excess over the limit 1e-4 + 1e-4 |want|; fatal above."""
+    import torch
     torch.cuda.synchronize()
     diff = (got - want).abs()
     err = diff.max().item()
     excess = (diff - 1e-4 * want.abs()).max().item()
-    name = f"p{level} {H}x{W} -> {out_size[0]}x{out_size[1]}"
-    log(f"B4 roi_align {name} K={K} C={C}: max|d|={err:.3e}, "
-        f"max(|d| - 1e-4|want|)={excess:.3e} (limit 1e-4)")
+    log(f"{what}: max|d|={err:.3e}, max(|d| - 1e-4|want|)={excess:.3e} (limit 1e-4)")
     if not (excess <= 1e-4 and torch.isfinite(got).all()):
-        fail(f"B4 disagrees with its plain version at {name}")
+        fail(f"B4 disagrees with its plain version: {what}")
+    return err
+
+
+def pyramid(gen, C=256, image=(256, 448)):
+    """Random FPN maps p2..p5 of an image, (C, ceil(H / 2**l), ceil(W / 2**l))."""
+    import torch
+    return [torch.randn(C, -(-image[0] // 2 ** l), -(-image[1] // 2 ** l),
+                        device="cuda", generator=gen) for l in (2, 3, 4, 5)]
+
+
+def check_multilevel(head, out_size, K=128, C=256, image=(256, 448)):
+    """B4 as the detector calls it: one launch per head, each box on its own
+    level of the 256x448 pyramid, K=128 boxes of every size (so every level
+    is taken), C=256."""
+    import torch
+    from dmm_net_tpu_torch.kernels.roi_align import (fpn_levels,
+                                                     multilevel_roi_align,
+                                                     multilevel_roi_align_plain)
+    gen = torch.Generator(device="cuda").manual_seed(30 + out_size[0])
+    s = 2
+
+    def make():
+        return [pyramid(gen, C, image), detector_boxes(gen, K, *image)]
+
+    args = make()
+    got = multilevel_roi_align(*args, out_size, s)
+    want = multilevel_roi_align_plain(*args, out_size, s)
+    per_level = torch.bincount(fpn_levels(args[1]), minlength=4).tolist()
+    name = f"{head} head -> {out_size[0]}x{out_size[1]}"
+    err = roi_compare(f"B4 multilevel_roi_align {name} K={K} C={C} boxes per "
+                      f"level p2..p5 {per_level}", got, want)
     oh, ow = out_size
-    byts = nbytes(*args) + K * C * oh * ow * 4             # + output written
-    ops = 10 * K * C * oh * ow * s * s                     # 4 taps, 3 lerps per sample
+    byts = nbytes(*args[0], args[1]) + K * C * oh * ow * 4   # pyramid once + output
+    ops = 10 * K * C * oh * ow * s * s                        # 4 taps, 3 lerps per sample
     inputs = [args] + [make() for _ in range(copies_for(byts) - 1)]
-    kernel = lambda f, b: roi_align(f, b, out_size, s, scale)  # noqa: E731
-    ms = device_ms(kernel, inputs, 100, ("roi_align_kernel",))
+    kernel = lambda lv, b: multilevel_roi_align(lv, b, out_size, s)  # noqa: E731
+    ms, _ = device_ms(kernel, inputs, 100, ("roi_align_kernel",))
     call = time_ms(kernel, inputs, 200)
-    plain = time_ms(lambda f, b: roi_align_mxu(f, b, out_size, s, scale), inputs, 20)
+    plain = time_ms(lambda lv, b: multilevel_roi_align_plain(lv, b, out_size, s),
+                    inputs, 20)
     b_ms, b_by = bound_ms(byts, ops)
     log(f"B4 {name} time: kernel {ms:.4f} ms on the device ({call:.4f} ms per "
         f"wrapper call), plain {plain:.4f} ms, bound {b_ms:.4f} ms "
@@ -497,8 +544,7 @@ def kernel_category(name: str) -> str:
     n = name.lower()
     if "memcpy" in n or "memset" in n:
         return "host/device copies"
-    if any(k in name for k in ("pool_cost_kernel", "sinkhorn_kernel",
-                               "resolve_kernel")):
+    if any(k in name for k in B1_KERNELS + ("resolve_kernel",)):
         return "port CUDA kernels B1+B2"
     if "roi_align_kernel" in name:
         return "port CUDA kernel B4 (ROI-Align)"
@@ -603,9 +649,9 @@ def detector_path(engine):
     if not np.isfinite(X).all() or (X[:, ~valid] != 0).any():
         fail("assignments from detector proposals not finite, or padded rows not 0")
     calls = K * B
-    if counts["roi_align"] != 8 * calls:
+    if counts["roi_align"] != 2 * calls:
         fail(f"roi_align launched {counts['roi_align']} times in {calls} "
-             f"detector calls, expected {8 * calls}")
+             f"detector calls, expected {2 * calls} (one per head)")
     for k in ("fused_pool_cost_match", "fused_resolve_upsample"):
         if counts[k] < K:
             fail(f"kernel {k} launched {counts[k]} times in {K} frame steps")
@@ -667,23 +713,25 @@ def main() -> int:
     # kernels against their plain versions: p3 bench batch (B=16), the main
     # path's batch (B=4), p4's M=32/N=256, and an annealed schedule
     b1 = check_matcher("p3 B=16", (16, 16, 128, 448, 256, 4096))
-    check_matcher("p3 B=4", (4, 16, 128, 448, 256, 4096), timed=False)
+    b1_b4 = check_matcher("p3 B=4", (4, 16, 128, 448, 256, 4096))
     check_matcher("p4 B=4", (4, 32, 256, 448, 256, 4096))
     check_matcher("p3 B=4 annealed", (4, 16, 128, 448, 256, 4096), timed=False,
                   eps_init=0.5)
+    check_matcher("p3 B=4 N=100", (4, 16, 100, 448, 256, 4096), timed=False)
     b2 = check_resolve("p3 B=16", 16, 16, 64, 112, 256, 448)
     check_resolve("p3 B=4", 4, 16, 64, 112, 256, 448)
     b3 = check_cost_match("B=16 P=4096", (16, 16, 128, 4096, 256))
     check_cost_match("unaligned", (1, 5, 37, 100, 48), timed=False)
     check_cost_match("p4", (1, 32, 256, 256, 64), timed=False)
-    b4 = {}
-    for level in (2, 3, 4, 5):
-        for out_size in ((7, 7), (14, 14)):
-            b4[(level, out_size)] = check_roi_align(level, out_size)
-    b4_img = sum(r["ms"] for r in b4.values())
-    b4_img_bound = sum(r["bound_ms"] for r in b4.values())
-    log(f"B4 per detector image (the 8 calls above): kernel {b4_img:.4f} ms, "
-        f"bound {b4_img_bound:.4f} ms")
+    b4_single = max(check_roi_align(level, out_size) for level in (2, 3, 4, 5)
+                    for out_size in ((7, 7), (14, 14)))
+    b4 = {"box": check_multilevel("box", (7, 7)),
+          "mask": check_multilevel("mask", (14, 14))}
+    b4_img = {k: sum(r[k] for r in b4.values())
+              for k in ("ms", "call_ms", "plain_ms", "bound_ms")}
+    log(f"B4 per detector image (box head + mask head, 2 launches): kernel "
+        f"{b4_img['ms']:.4f} ms, plain {b4_img['plain_ms']:.4f} ms, bound "
+        f"{b4_img['bound_ms']:.4f} ms")
 
     counts, fps, engine = main_path()
     det_counts, det_ms, det_prof = detector_path(engine)
@@ -695,7 +743,9 @@ def main() -> int:
              source="dmm_net_tpu_torch/csrc/matcher.cu",
              replaces="dmm_net_tpu/kernels/matcher.py:262",
              launches=counts["fused_pool_cost_match"], shape="p3 B=16",
-             library_ms=None, **b1),
+             library_ms=None, batch4={k: b1_b4[k] for k in (
+                 "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
+                 "launch_ms", "sinkhorn_iter_ms")}, **b1),
         dict(name="fused_resolve_upsample", route="cuda",
              source="dmm_net_tpu_torch/csrc/resolve.cu",
              replaces="dmm_net_tpu/kernels/resolve.py:117",
@@ -709,10 +759,17 @@ def main() -> int:
         dict(name="roi_align", route="cuda",
              source="dmm_net_tpu_torch/csrc/roi_align.cu",
              replaces="dmm_net_tpu/kernels/roi_align.py:65",
-             launches=det_counts["roi_align"], shape="p2 64x112 -> 14x14, K=128 C=256",
-             path="detector (phase 4b); 8 launches per detector image",
-             image_ms=b4_img, image_bound_ms=b4_img_bound, library_ms=None,
-             **b4[(2, (14, 14))]),
+             launches=det_counts["roi_align"],
+             shape="per detector image: box head K=128 -> 7x7 + mask head "
+                   "K=128 -> 14x14, C=256, 256x448 pyramid",
+             path="detector (phase 4b); 2 launches per detector image",
+             max_abs_err=max(b4["box"]["max_abs_err"], b4["mask"]["max_abs_err"]),
+             single_level_max_abs_err=b4_single,
+             image_ms=b4_img["ms"], image_bound_ms=b4_img["bound_ms"],
+             heads=b4, library_ms=None,
+             bound_by=("bytes" if all(r["bound_by"] == "bytes" for r in b4.values())
+                       else "operations"),
+             **{k: b4_img[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms")}),
     ]
     print(json.dumps({"kernels": kernels, "frames_per_s": fps,
                       "detector_ms_per_image": det_ms,

@@ -8,43 +8,87 @@
 //   C[m,n]  = lam * (1 - IoU(tm[m], pm[n])) + (1 - lam) * (1 - cos(tf[m], pf[n]))
 //   X       = Sinkhorn(C) over valid (row, col) pairs; padded entries exactly 0
 //
-// Two launches on the caller's stream:
-//   1. pool_cost_kernel, grid (ceil(N / NT), B): one block pools NT proposals
-//      into the f32 scratch `pf` and writes their M x NT cost columns to the
-//      f32 scratch `cost`.  The (M x PT) and (NT x PT) mask tiles of the IoU
-//      product stream through shared memory.
-//   2. sinkhorn_kernel, grid (B): C (M x N) lives in dynamic shared memory
-//      for all iterations; row and column log-sum-exps are warp reductions.
+// B3 replaces `_pallas_forward` / `_matcher_kernel` (public `fused_cost_match`,
+// same file): the features arrive pooled, so it skips the first launch.
 //
-// Everything is float32 (the reference pins Precision.HIGHEST), with the
-// accurate expf/logf (no fast math).
+// Three launches on the caller's stream (B3: the last two), all float32 on
+// FFMA (the reference pins Precision.HIGHEST):
+//   1. matcher_pool_kernel, grid (N / PN, D / PD, B): pf tiles,
+//      (PN x P) @ (P x PD).
+//   2. matcher_cost_kernel, grid (N / NT, S + 1, B): blocks y < S each sum the
+//      intersections and mask areas of an (M x NT) tile over one of S slices
+//      of the Pc pixels; block y = S takes the cosine of the tile over D.
+//      S is chosen so that B=4 fills the card as B=16 does (about 2 blocks
+//      per SM).  The slices' partial sums go to a small scratch and are added
+//      in a fixed order by launch 3, so the result does not change from run
+//      to run (no float atomics).
+//   3. matcher_sinkhorn_kernel, grid (B): builds C (M x N) in shared memory
+//      from the partial sums and keeps it there, with f and g, for all
+//      iterations.
+// Launches 1 and 2 stream their operands through shared memory in tiles of
+// PT = 64 pixels (or feature dims) with cp.async, double buffered: the next
+// tile's copy runs under this tile's FMAs.  Each thread keeps an NT-strided
+// register tile of up to 8 template rows against one proposal, reading the
+// template rows as broadcasts and the proposal rows as conflict-free float4s.
 //
-// What bounds it on an H100: bytes.  At p3 (B=16, M=16, N=128, P=448,
-// Pc=4096, D=256) it reads ~49 MB (pm_cost dominates) against ~0.77 GFLOP of
-// f32 work, so the floor is ~15 us at 3.35 TB/s.  This first version reads
-// the cost masks once per block and keeps C out of device memory during the
-// iterations, but the Sinkhorn launch uses only B blocks (16 of 132 SMs at
-// p3) and its iterations are latency-bound: that is the part a later change
-// should spread over more SMs.
+// Sinkhorn: one warp per row for the row pass, each lane holding its
+// columns' values in registers (the kernel is instantiated for N <= 32,
+// 64, ..., 1024), and G lanes per column for the column pass (G = 4 at p3:
+// 512 threads over 128 columns); each reduction is a warp shuffle, with two
+// barriers per iteration.  The log-sum-exps run in base 2 with log2(e) / eps
+// folded into one scale per iteration (no division in the inner loops), on
+// the hardware's ex2 / lg2; a padded pair carries a cost of 1e30, so it
+// drops out of every max and sum without a branch.  The rounding points
+// stay the reference's: the max floored at NEG / 2, the sum at 1e-38, the
+// column dual capped at 0, and the final exp clipped at 30 with the
+// accurate expf.
 //
-// B3 replaces the TPU kernel `_pallas_forward` / `_matcher_kernel` (public
-// `fused_cost_match`, same file): the features arrive pooled, so its first
-// launch, cost_kernel, runs only the cost phase (cost_tile, shared with B1)
-// and its second is the same sinkhorn_kernel at a fixed epsilon.  Bound:
-// bytes, ~40 MB read at B=16, M=16, N=128, P=4096, D=256 (~12 us).
+// What bounds it on an H100.  By bytes the floor is ~15 us at p3 B=16 (it
+// must read ~49 MB, pm_cost dominates, against ~0.8 GFLOP of f32 work) and
+// ~3.7 us at B=4.  The pooling and cost launches are spread over the card
+// at either batch; what sets the time at the main path's B=4 is the
+// Sinkhorn's 31 dependent iterations on one block per batch element, a
+// latency chain (two barriers, two warp reductions and the exponentials
+// per iteration) that does not shrink with the batch.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
 
-constexpr int NT = 16;          // proposals per pool/cost block
-constexpr int PT = 32;          // pixels per shared-memory tile
-constexpr int POOL_THREADS = 256;
-constexpr int MAX_PAIRS = 4;    // (M * NT) / POOL_THREADS, so M <= 64
-constexpr int SINK_THREADS = 1024;
+constexpr int THREADS = 256;    // pool and cost blocks
+constexpr int PT = 64;          // pixels / feature dims per staged tile
+constexpr int LDT = PT + 4;     // shared row stride: 16-byte rows, float4 reads conflict-free
+constexpr int NT = 32;          // proposals per cost block (one per lane)
+constexpr int MG = THREADS / NT;  // template-row groups (one per warp)
+constexpr int MAX_M = 64;       // 8 template rows per thread
+constexpr int MAX_N = 1024;     // 32 lanes x 32 columns in the Sinkhorn's row pass
+constexpr int PN = 16;          // proposals per pooling block
+constexpr int PD = 64;          // feature dims per pooling block (== PT)
+constexpr int TARGET_BLOCKS = 264;   // ~2 cost blocks per SM of an H100
 constexpr float NEG = -1e30f;
+constexpr float LOG2E = 1.44269504088896341f;
+constexpr float LN2 = 0.693147180559945309f;
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
 
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -56,247 +100,363 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Cost columns n0 .. n0 + nt of batch element b from pooled features:
-//   C[m, n] = lam * (1 - IoU(tm[m], pm[n])) + (1 - lam) * (1 - cos(tf[m], pf[n]))
-// with the union floored at 1e-6 and each feature scaled by rsqrt(|f|^2 + 1e-12).
-// pm_b and pf_b point at row n0.  Shared memory: s_a (M x (PT + 1)),
-// s_b (NT x (PT + 1)), s_tn (M), s_pn (NT).  Called by every thread of the block.
-__device__ void cost_tile(const float* __restrict__ tm_b, const float* __restrict__ pm_b,
-                          const float* __restrict__ tf_b, const float* __restrict__ pf_b,
-                          float* __restrict__ cost_b, int M, int N, int n0, int nt, int Pc,
-                          int D, float iou_weight, float* smem) {
-  float* s_a = smem;
-  float* s_b = s_a + M * (PT + 1);
-  float* s_tn = s_b + NT * (PT + 1);
-  float* s_pn = s_tn + M;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
-
-  // ---- feature norms ------------------------------------------------------
-  for (int r = warp; r < M + NT; r += nwarps) {
-    const bool is_t = r < M;
-    const int i = is_t ? r : r - M;
-    float s = 0.f;
-    if (is_t || i < nt) {
-      const float* row = is_t ? tf_b + (size_t)i * D : pf_b + (size_t)i * D;
-      for (int d = lane; d < D; d += 32) s = fmaf(row[d], row[d], s);
-    }
-    s = warp_sum(s);
-    if (lane == 0) {
-      if (is_t) s_tn[i] = rsqrtf(s + 1e-12f);
-      else s_pn[i] = rsqrtf(s + 1e-12f);
-    }
-  }
-  __syncthreads();
-
-  // ---- cosine, intersection and areas over the cost grid ------------------
-  // Thread pairs: q = tid + r * blockDim.x  ->  (m = q / NT, i = q % NT).
-  const int npairs = M * NT;
-  float cosv[MAX_PAIRS], inter[MAX_PAIRS], at[MAX_PAIRS], ap[MAX_PAIRS];
+// Copy rows [0, rows) x cols [0, PT) of `src` (row stride ld; entries past
+// nrow rows or ncol columns read as 0) into `dst` (row stride LDT) with
+// cp.async.  `vec`: src and ld are 16-byte aligned, so whole 16-byte chunks
+// go in one copy.  The caller commits the group.
+__device__ __forceinline__ void stage_tile(float* dst, const float* src, int ld, int rows,
+                                           int nrow, int ncol, bool vec) {
+  if (vec) {
+    for (int e = threadIdx.x; e < rows * (PT / 4); e += blockDim.x) {
+      const int r = e / (PT / 4), c = 4 * (e % (PT / 4));
+      float* d = dst + r * LDT + c;
+      const float* s = src + (size_t)r * ld + c;
+      if (r < nrow && c + 4 <= ncol) {
+        cp_async16(d, s);
+      } else {
 #pragma unroll
-  for (int r = 0; r < MAX_PAIRS; ++r) {
-    cosv[r] = inter[r] = at[r] = ap[r] = 0.f;
-    const int q = tid + r * blockDim.x;
-    if (q < npairs) {
-      const int m = q / NT, i = q % NT;
-      if (i < nt) {
-        const float* t = tf_b + (size_t)m * D;
-        const float* p = pf_b + (size_t)i * D;
-        float s = 0.f;
-        for (int d = 0; d < D; ++d) s = fmaf(t[d] * s_tn[m], p[d] * s_pn[i], s);
-        cosv[r] = s;
-      }
-    }
-  }
-  for (int p0 = 0; p0 < Pc; p0 += PT) {
-    __syncthreads();
-    for (int e = tid; e < M * PT; e += blockDim.x) {
-      const int m = e / PT, j = e % PT;
-      s_a[m * (PT + 1) + j] = (p0 + j < Pc) ? tm_b[(size_t)m * Pc + p0 + j] : 0.f;
-    }
-    for (int e = tid; e < NT * PT; e += blockDim.x) {
-      const int i = e / PT, j = e % PT;
-      s_b[i * (PT + 1) + j] =
-          (i < nt && p0 + j < Pc) ? pm_b[(size_t)i * Pc + p0 + j] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int r = 0; r < MAX_PAIRS; ++r) {
-      const int q = tid + r * blockDim.x;
-      if (q < npairs) {
-        const float* a = s_a + (q / NT) * (PT + 1);
-        const float* c = s_b + (q % NT) * (PT + 1);
-        float s = inter[r], sa = at[r], sb = ap[r];
-        for (int j = 0; j < PT; ++j) {
-          s = fmaf(a[j], c[j], s);
-          sa += a[j];
-          sb += c[j];
+        for (int u = 0; u < 4; ++u) {
+          if (r < nrow && c + u < ncol) cp_async4(d + u, s + u);
+          else d[u] = 0.f;
         }
-        inter[r] = s; at[r] = sa; ap[r] = sb;
       }
     }
-  }
-#pragma unroll
-  for (int r = 0; r < MAX_PAIRS; ++r) {
-    const int q = tid + r * blockDim.x;
-    if (q < npairs) {
-      const int m = q / NT, i = q % NT;
-      if (i < nt) {
-        const float uni = fmaxf(at[r] + ap[r] - inter[r], 1e-6f);
-        const float iou = inter[r] / uni;
-        cost_b[(size_t)m * N + n0 + i] =
-            iou_weight * (1.f - iou) + (1.f - iou_weight) * (1.f - cosv[r]);
-      }
+  } else {
+    for (int e = threadIdx.x; e < rows * PT; e += blockDim.x) {
+      const int r = e / PT, c = e % PT;
+      if (r < nrow && c < ncol) cp_async4(dst + r * LDT + c, src + (size_t)r * ld + c);
+      else dst[r * LDT + c] = 0.f;
     }
   }
 }
 
-__global__ void pool_cost_kernel(const float* __restrict__ emb,        // (B, P, D)
-                                 const float* __restrict__ pmask_pool, // (B, N, P)
-                                 const float* __restrict__ tm,         // (B, M, Pc)
-                                 const float* __restrict__ pm,         // (B, N, Pc)
-                                 const float* __restrict__ tf,         // (B, M, D)
-                                 float* __restrict__ pf,               // (B, N, D) scratch
-                                 float* __restrict__ cost,             // (B, M, N) scratch
-                                 int M, int N, int P, int Pc, int D, float iou_weight) {
-  extern __shared__ float smem[];
-  float* s_b = smem + M * (PT + 1);                          // cost_tile's proposal tile
-  float* s_rowsum = s_b + NT * (PT + 1) + M + NT;            // after cost_tile's region
+__device__ __forceinline__ bool aligned16(const void* p, int ld) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0 && ld % 4 == 0;
+}
 
-  const int b = blockIdx.y;
-  const int n0 = blockIdx.x * NT;
+// ---- 1. pooling: pf[n, d] = sum_p pmask[n, p] * emb[p, d] / max(area_n, 1e-6)
+__global__ void __launch_bounds__(THREADS)
+matcher_pool_kernel(const float* __restrict__ emb,          // (B, P, D)
+            const float* __restrict__ pmask_pool,   // (B, N, P)
+            float* __restrict__ pf,                 // (B, N, D)
+            int N, int P, int D) {
+  extern __shared__ __align__(16) float smem[];
+  // two stages of (PN mask rows, then PT embedding rows), row stride LDT
+  constexpr int stage_floats = (PN + PT) * LDT;
+  const int b = blockIdx.z, n0 = blockIdx.x * PN, d0 = blockIdx.y * PD;
+  const int tid = threadIdx.x;
+  const int i = tid / (PD / 4), dq = tid % (PD / 4);    // proposal, float4 of d
+  const float* pm_b = pmask_pool + ((size_t)b * N + n0) * P;
+  const float* e_b = emb + (size_t)b * P * D + d0;
+  const bool vm = aligned16(pm_b, P), ve = aligned16(e_b, D);
+  const int nrow = min(PN, N - n0), ncol = min(PD, D - d0);
+  const int tiles = (P + PT - 1) / PT;
+
+  auto load = [&](int t, int buf) {
+    const int p0 = t * PT;
+    float* st = smem + buf * stage_floats;
+    stage_tile(st, pm_b + p0, P, PN, nrow, min(PT, P - p0), vm);
+    stage_tile(st + PN * LDT, e_b + (size_t)p0 * D, D, PT, min(PT, P - p0), ncol, ve);
+    cp_async_commit();
+  };
+
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
+  float area = 0.f;
+  if (tiles > 0) load(0, 0);
+  for (int t = 0; t < tiles; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < tiles) {
+      load(t + 1, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* mrow = smem + buf * stage_floats + i * LDT;
+    const float* ecol = smem + buf * stage_floats + PN * LDT + 4 * dq;
+#pragma unroll 8
+    for (int j = 0; j < PT; ++j) {
+      const float a = mrow[j];
+      const float4 e = *reinterpret_cast<const float4*>(ecol + j * LDT);
+      area += a;
+      acc[0] = fmaf(a, e.x, acc[0]);
+      acc[1] = fmaf(a, e.y, acc[1]);
+      acc[2] = fmaf(a, e.z, acc[2]);
+      acc[3] = fmaf(a, e.w, acc[3]);
+    }
+    __syncthreads();
+  }
+  if (i < nrow) {
+    const float den = fmaxf(area, 1e-6f);
+    float* o = pf + ((size_t)b * N + n0 + i) * D + d0;
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (4 * dq + u < ncol) o[4 * dq + u] = acc[u] / den;
+  }
+}
+
+// ---- 2. cost tile partial sums ---------------------------------------------
+// Sums over columns [l0, l1) of A (M rows, stride lda) against B (nt rows,
+// stride ldb), for R template rows per thread: dot[r] for row m = g + MG * r
+// against proposal i; with SUM_A, ra[r] the row's sum; rb proposal i's sum
+// (in warp 0 only, unless SQUARES).  SQUARES sums squares instead (norms).
+template <int R, bool SQUARES, bool SUM_A>
+__device__ __forceinline__ void pair_sums(const float* A, int lda, int M, const float* Bm,
+                                          int ldb, int nt, int l0, int l1, float* smem,
+                                          float dot[R], float ra[R], float& rb) {
+  // two stages of (M template rows, then NT proposal rows), row stride LDT
+  const int stage_floats = (M + NT) * LDT;
+  const int i = threadIdx.x % NT, g = threadIdx.x / NT;
+  const bool sum_b = SQUARES || g == 0;            // warp-uniform
+  const bool va = aligned16(A + l0, lda), vb = aligned16(Bm + l0, ldb);
+  const int tiles = l1 > l0 ? (l1 - l0 + PT - 1) / PT : 0;
+
+  auto load = [&](int t, int buf) {
+    const int c0 = l0 + t * PT, nc = min(PT, l1 - c0);
+    float* st = smem + buf * stage_floats;
+    stage_tile(st, A + c0, lda, M, M, nc, va);
+    stage_tile(st + M * LDT, Bm + c0, ldb, NT, nt, nc, vb);
+    cp_async_commit();
+  };
+
+  if (tiles > 0) load(0, 0);
+  for (int t = 0; t < tiles; ++t) {
+    const int buf = t & 1;
+    if (t + 1 < tiles) {
+      load(t + 1, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* s_a = smem + buf * stage_floats;
+    const float* brow = s_a + (M + i) * LDT;
+#pragma unroll 4
+    for (int j = 0; j < PT; j += 4) {
+      const float4 q = *reinterpret_cast<const float4*>(brow + j);
+      if (sum_b)
+        rb += SQUARES ? q.x * q.x + q.y * q.y + q.z * q.z + q.w * q.w : q.x + q.y + q.z + q.w;
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int m = min(g + MG * r, M - 1);     // rows past M repeat row M - 1, unused
+        const float4 a = *reinterpret_cast<const float4*>(s_a + m * LDT + j);
+        float d = dot[r];
+        d = fmaf(a.x, q.x, d);
+        d = fmaf(a.y, q.y, d);
+        d = fmaf(a.z, q.z, d);
+        d = fmaf(a.w, q.w, d);
+        dot[r] = d;
+        if (SUM_A)
+          ra[r] += SQUARES ? a.x * a.x + a.y * a.y + a.z * a.z + a.w * a.w
+                           : a.x + a.y + a.z + a.w;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// Block (x, y, b): proposals n0 = x * NT .. of batch element b; R template
+// rows per thread (M <= MG * R).
+//   y < S:  intersections and mask areas over pixels [y * chunk, (y+1) * chunk)
+//           -> inter_part (B, S, M, N), at_part (B, S, M) (blocks x == 0),
+//              ap_part (B, S, N)
+//   y == S: cosine over D -> cos (B, M, N)
+template <int R>
+__global__ void __launch_bounds__(THREADS)
+matcher_cost_kernel(const float* __restrict__ tm,   // (B, M, Pc)
+                    const float* __restrict__ pm,   // (B, N, Pc)
+                    const float* __restrict__ tf,   // (B, M, D)
+                    const float* __restrict__ pf,   // (B, N, D)
+                    float* __restrict__ cos_out, float* __restrict__ inter_part,
+                    float* __restrict__ at_part, float* __restrict__ ap_part,
+                    int M, int N, int Pc, int D, int S, int chunk) {
+  extern __shared__ __align__(16) float smem[];
+  const int b = blockIdx.z, y = blockIdx.y, n0 = blockIdx.x * NT;
   const int nt = min(NT, N - n0);
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
-
-  const float* emb_b = emb + (size_t)b * P * D;
-  const float* pp_b = pmask_pool + ((size_t)b * N + n0) * P;
-  float* pf_b = pf + ((size_t)b * N + n0) * D;
-
-  // mask areas at the embedding grid (pooling denominators)
-  for (int i = warp; i < NT; i += nwarps) {
-    float s = 0.f;
-    if (i < nt)
-      for (int p = lane; p < P; p += 32) s += pp_b[(size_t)i * P + p];
-    s = warp_sum(s);
-    if (lane == 0) s_rowsum[i] = s;
-  }
-
-  // ---- pooling: pf[i, d] = sum_p pmask[i, p] * emb[p, d] / area -----------
-  for (int d0 = 0; d0 < D; d0 += blockDim.x) {
-    const int d = d0 + tid;
-    float acc[NT];
+  const int i = threadIdx.x % NT, g = threadIdx.x / NT;
+  float dot[R], ra[R], rb = 0.f;
 #pragma unroll
-    for (int i = 0; i < NT; ++i) acc[i] = 0.f;
-    for (int p0 = 0; p0 < P; p0 += PT) {
-      __syncthreads();
-      for (int e = tid; e < NT * PT; e += blockDim.x) {
-        const int i = e / PT, j = e % PT;
-        s_b[i * (PT + 1) + j] =
-            (i < nt && p0 + j < P) ? pp_b[(size_t)i * P + p0 + j] : 0.f;
-      }
-      __syncthreads();
-      if (d < D) {
-        const int pend = min(PT, P - p0);
-        for (int j = 0; j < pend; ++j) {
-          const float e = emb_b[(size_t)(p0 + j) * D + d];
+  for (int r = 0; r < R; ++r) dot[r] = ra[r] = 0.f;
+
+  if (y == S) {
+    pair_sums<R, true, true>(tf + (size_t)b * M * D, D, M, pf + ((size_t)b * N + n0) * D, D,
+                             nt, 0, D, smem, dot, ra, rb);
+    if (i < nt) {
+      const float pn = rsqrtf(rb + 1e-12f);
 #pragma unroll
-          for (int i = 0; i < NT; ++i) acc[i] = fmaf(s_b[i * (PT + 1) + j], e, acc[i]);
-        }
+      for (int r = 0; r < R; ++r) {
+        const int m = g + MG * r;
+        if (m < M)
+          cos_out[((size_t)b * M + m) * N + n0 + i] = dot[r] * rsqrtf(ra[r] + 1e-12f) * pn;
       }
     }
-    if (d < D) {
+    return;
+  }
+  const int l0 = min(Pc, y * chunk), l1 = min(Pc, l0 + chunk);
+  const float* tm_b = tm + (size_t)b * M * Pc;
+  const float* pm_b = pm + ((size_t)b * N + n0) * Pc;
+  if (blockIdx.x == 0)        // template areas: once per slice, from the first column tile
+    pair_sums<R, false, true>(tm_b, Pc, M, pm_b, Pc, nt, l0, l1, smem, dot, ra, rb);
+  else
+    pair_sums<R, false, false>(tm_b, Pc, M, pm_b, Pc, nt, l0, l1, smem, dot, ra, rb);
+  const size_t bs = (size_t)b * S + y;
+  if (i < nt) {
 #pragma unroll
-      for (int i = 0; i < NT; ++i)
-        if (i < nt) pf_b[(size_t)i * D + d] = acc[i] / fmaxf(s_rowsum[i], 1e-6f);
+    for (int r = 0; r < R; ++r) {
+      const int m = g + MG * r;
+      if (m < M) inter_part[(bs * M + m) * N + n0 + i] = dot[r];
+    }
+    if (g == 0) ap_part[bs * N + n0 + i] = rb;
+  }
+  if (blockIdx.x == 0 && i == 0) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int m = g + MG * r;
+      if (m < M) at_part[bs * M + m] = ra[r];
     }
   }
-  __syncthreads();   // pf rows of this block are visible to all its threads
-
-  cost_tile(tm + (size_t)b * M * Pc, pm + ((size_t)b * N + n0) * Pc,
-            tf + (size_t)b * M * D, pf_b, cost + (size_t)b * M * N, M, N, n0, nt, Pc, D,
-            iou_weight, smem);
 }
 
-// Kernel B3's first launch: the cost from already-pooled features.
-__global__ void cost_kernel(const float* __restrict__ tm,   // (B, M, P)
-                            const float* __restrict__ pm,   // (B, N, P)
-                            const float* __restrict__ tf,   // (B, M, D)
-                            const float* __restrict__ pf,   // (B, N, D)
-                            float* __restrict__ cost,       // (B, M, N) scratch
-                            int M, int N, int P, int D, float iou_weight) {
-  extern __shared__ float smem[];
-  const int b = blockIdx.y;
-  const int n0 = blockIdx.x * NT;
-  cost_tile(tm + (size_t)b * M * P, pm + ((size_t)b * N + n0) * P, tf + (size_t)b * M * D,
-            pf + ((size_t)b * N + n0) * D, cost + (size_t)b * M * N, M, N, n0,
-            min(NT, N - n0), P, D, iou_weight, smem);
+cudaError_t set_smem(const void* fn, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(bytes));
 }
 
-// Masked log-sum-exp pieces, mirroring the reference:
-//   mx = max(max_valid(z), NEG / 2); s = sum_valid exp(z - mx);
-//   lse = mx + log(max(s, 1e-38)).
-__global__ void sinkhorn_kernel(const float* __restrict__ cost,  // (B, M, N)
-                                const float* __restrict__ rm,    // (B, M) 0/1
-                                const float* __restrict__ cm,    // (B, N) 0/1
-                                float* __restrict__ X,           // (B, M, N)
-                                int M, int N, float epsilon, int iters,
-                                int anneal, float epsilon_init, float log_decay) {
+template <int R>
+int launch_cost(const float* tm, const float* pm, const float* tf, const float* pf,
+                float* cosv, float* inter, float* at, float* ap, int B, int M, int N, int Pc,
+                int D, int S, int chunk, cudaStream_t st) {
+  const size_t smem = sizeof(float) * 2 * (size_t)(M + NT) * LDT;
+  cudaError_t err = set_smem(reinterpret_cast<const void*>(matcher_cost_kernel<R>), smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  matcher_cost_kernel<R><<<dim3((N + NT - 1) / NT, S + 1, B), THREADS, smem, st>>>(
+      tm, pm, tf, pf, cosv, inter, at, ap, M, N, Pc, D, S, chunk);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- 3. Sinkhorn -----------------------------------------------------------
+// Masked log-sum-exp, as the reference: mx = max(max_valid(z), NEG / 2);
+// s = sum_valid exp(z - mx); lse = mx + log(max(s, 1e-38)).  Here z is kept
+// in base 2 (z2 = z * log2 e), so lse = ln 2 * (mx2 + log2(max(s, 1e-38))),
+// with the hardware's ex2 / lg2 (relative error ~2^-22).  A padded pair
+// carries the cost PAD_COST, so its z lies far below NEG / 2: it never sets
+// the max and its exp is exactly 0, which is the reference's mask without a
+// branch.
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ float lg2(float x) {
+  float y;
+  asm("lg2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+constexpr float PAD_COST = 1e30f;
+
+// NPL: columns per lane in the row pass (N <= 32 * NPL), held in registers.
+template <int NPL>
+__global__ void matcher_sinkhorn_kernel(const float* __restrict__ cos_in,      // (B, M, N)
+                                        const float* __restrict__ inter_part,  // (B, S, M, N)
+                                        const float* __restrict__ at_part,     // (B, S, M)
+                                        const float* __restrict__ ap_part,     // (B, S, N)
+                                        const float* __restrict__ rm,          // (B, M) 0/1
+                                        const float* __restrict__ cm,          // (B, N) 0/1
+                                        float* __restrict__ X,                 // (B, M, N)
+                                        int M, int N, int S, int ldc, int G, float iou_weight,
+                                        float epsilon, int iters, int anneal,
+                                        float epsilon_init, float log_decay) {
   extern __shared__ float smem[];
-  const int ldc = N + 1;                 // odd stride: column walks avoid bank conflicts
   float* s_c = smem;                     // M x ldc
-  float* s_f = s_c + M * ldc;            // M
+  float* s_f = s_c + (size_t)M * ldc;    // M
   float* s_g = s_f + M;                  // N
   float* s_rv = s_g + N;                 // M
   float* s_cv = s_rv + M;                // N
+  float* s_at = s_cv + N;                // M
+  float* s_ap = s_at + M;                // N
 
   const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5, nwarps = blockDim.x >> 5;
-  const float* c_b = cost + (size_t)b * M * N;
+  const int tid = threadIdx.x, T = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nwarps = T >> 5;
 
-  for (int e = tid; e < M * N; e += blockDim.x) s_c[(e / N) * ldc + e % N] = c_b[e];
-  for (int m = tid; m < M; m += blockDim.x) s_rv[m] = rm[(size_t)b * M + m] > 0.5f ? 1.f : 0.f;
-  for (int n = tid; n < N; n += blockDim.x) {
+  // areas: the slices' partial sums, in slice order
+  for (int m = tid; m < M; m += T) {
+    float a = 0.f;
+    for (int y = 0; y < S; ++y) a += at_part[((size_t)b * S + y) * M + m];
+    s_at[m] = a;
+    s_rv[m] = rm[(size_t)b * M + m] > 0.5f ? 1.f : 0.f;
+    s_f[m] = 0.f;
+  }
+  for (int n = tid; n < N; n += T) {
+    float a = 0.f;
+    for (int y = 0; y < S; ++y) a += ap_part[((size_t)b * S + y) * N + n];
+    s_ap[n] = a;
     s_cv[n] = cm[(size_t)b * N + n] > 0.5f ? 1.f : 0.f;
     s_g[n] = 0.f;
   }
   __syncthreads();
+  for (int e = tid; e < M * N; e += T) {
+    const int m = e / N, n = e % N;
+    float inter = 0.f;
+    for (int y = 0; y < S; ++y) inter += inter_part[((size_t)b * S + y) * M * N + e];
+    const float uni = fmaxf(s_at[m] + s_ap[n] - inter, 1e-6f);
+    const float iou = inter / uni;
+    const float c = iou_weight * (1.f - iou) +
+                    (1.f - iou_weight) * (1.f - cos_in[(size_t)b * M * N + e]);
+    s_c[m * ldc + n] = (s_rv[m] > 0.5f && s_cv[n] > 0.5f) ? c : PAD_COST;
+  }
+  __syncthreads();
 
-  // f[m] = valid_row ? -eps * lse_n((-C + g) / eps) : 0   (over valid pairs)
+  // f[m] = valid_row ? -eps * lse_n((g - C) / eps) : 0, one warp per row,
+  // lane l holding columns l, l + 32, ...
   auto row_update = [&](float eps) {
+    const float sc = LOG2E / eps;
     for (int m = warp; m < M; m += nwarps) {
-      const bool rv = s_rv[m] > 0.5f;
+      const float* crow = s_c + m * ldc;
+      float z[NPL];
       float mx = NEG;
-      for (int n = lane; n < N; n += 32)
-        if (rv && s_cv[n] > 0.5f) mx = fmaxf(mx, -s_c[m * ldc + n] / eps + s_g[n] / eps);
+#pragma unroll
+      for (int i = 0; i < NPL; ++i) {
+        const int n = lane + 32 * i;
+        z[i] = n < N ? (s_g[n] - crow[n]) * sc : NEG;
+        mx = fmaxf(mx, z[i]);
+      }
       mx = fmaxf(warp_max(mx), NEG / 2);
       float s = 0.f;
-      for (int n = lane; n < N; n += 32)
-        if (rv && s_cv[n] > 0.5f) s += expf(-s_c[m * ldc + n] / eps + s_g[n] / eps - mx);
+#pragma unroll
+      for (int i = 0; i < NPL; ++i) s += ex2(z[i] - mx);
       s = warp_sum(s);
-      if (lane == 0) s_f[m] = rv ? -eps * (mx + logf(fmaxf(s, 1e-38f))) : 0.f;
+      if (lane == 0) s_f[m] = s_rv[m] > 0.5f ? -eps * LN2 * (mx + lg2(fmaxf(s, 1e-38f))) : 0.f;
     }
   };
 
+  const int cols_per_pass = T / G;
+  const int q = tid % G;
   for (int k = 0; k < iters; ++k) {
     const float eps = anneal ? fmaxf(epsilon_init * expf((float)k * log_decay), epsilon)
                              : epsilon;
     row_update(eps);
     __syncthreads();
-    // g[n] = valid_col ? min(0, -eps * lse_m((-C + f) / eps)) : 0
-    for (int n = warp; n < N; n += nwarps) {
-      const bool cv = s_cv[n] > 0.5f;
+    // g[n] = valid_col ? min(0, -eps * lse_m((f - C) / eps)) : 0, G lanes per column
+    const float sc = LOG2E / eps;
+    for (int n0 = 0; n0 < N; n0 += cols_per_pass) {
+      const int n = n0 + tid / G;
+      const int nn = min(n, N - 1);          // lanes past N compute a copy, unused
       float mx = NEG;
-      for (int m = lane; m < M; m += 32)
-        if (cv && s_rv[m] > 0.5f) mx = fmaxf(mx, -s_c[m * ldc + n] / eps + s_f[m] / eps);
-      mx = fmaxf(warp_max(mx), NEG / 2);
+#pragma unroll 4
+      for (int m = q; m < M; m += G) mx = fmaxf(mx, (s_f[m] - s_c[m * ldc + nn]) * sc);
+      for (int o = G >> 1; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      mx = fmaxf(mx, NEG / 2);
       float s = 0.f;
-      for (int m = lane; m < M; m += 32)
-        if (cv && s_rv[m] > 0.5f) s += expf(-s_c[m * ldc + n] / eps + s_f[m] / eps - mx);
-      s = warp_sum(s);
-      if (lane == 0)
-        s_g[n] = cv ? fminf(0.f, -eps * (mx + logf(fmaxf(s, 1e-38f)))) : 0.f;
+#pragma unroll 4
+      for (int m = q; m < M; m += G) s += ex2((s_f[m] - s_c[m * ldc + nn]) * sc - mx);
+      for (int o = G >> 1; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+      if (q == 0 && n < N)
+        s_g[n] = s_cv[n] > 0.5f ? fminf(0.f, -eps * LN2 * (mx + lg2(fmaxf(s, 1e-38f)))) : 0.f;
     }
     __syncthreads();
   }
@@ -304,7 +464,7 @@ __global__ void sinkhorn_kernel(const float* __restrict__ cost,  // (B, M, N)
   __syncthreads();
 
   float* x_b = X + (size_t)b * M * N;
-  for (int e = tid; e < M * N; e += blockDim.x) {
+  for (int e = tid; e < M * N; e += T) {
     const int m = e / N, n = e % N;
     float v = 0.f;
     if (s_rv[m] > 0.5f && s_cv[n] > 0.5f)
@@ -313,60 +473,121 @@ __global__ void sinkhorn_kernel(const float* __restrict__ cost,  // (B, M, N)
   }
 }
 
-// Shared memory of one cost tile (cost_tile), plus B1's pooling denominators.
-size_t cost_smem(int M, bool pooling) {
-  return sizeof(float) * ((size_t)M * (PT + 1) + NT * (PT + 1) + M + NT + (pooling ? NT : 0));
-}
-
-int launch_sinkhorn(const float* cost, const float* rm, const float* cm, float* X, int B,
-                    int M, int N, float epsilon, int iters, int anneal, float epsilon_init,
-                    float log_decay, cudaStream_t s) {
-  const size_t smem = sizeof(float) * ((size_t)M * (N + 1) + 2 * (size_t)M + 2 * (size_t)N);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        sinkhorn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  sinkhorn_kernel<<<B, SINK_THREADS, smem, s>>>(cost, rm, cm, X, M, N, epsilon, iters, anneal,
-                                               epsilon_init, log_decay);
+template <int NPL>
+int launch_sinkhorn(const float* cosv, const float* inter, const float* at, const float* ap,
+                    const float* rm, const float* cm, float* X, int B, int M, int N, int S,
+                    float iou_weight, float epsilon, int iters, int anneal, float epsilon_init,
+                    float log_decay, cudaStream_t st) {
+  // one warp per row, up to 1024 threads; G lanes per column in the column pass
+  const int T = std::min(1024, std::max(256, 32 * M));
+  int G = 1;
+  while (G < 32 && 2 * G * N <= T && G < M) G *= 2;
+  int ldc = N + 1;                         // column pass: rows of a warp land on other banks
+  if (G > 1)
+    while (ldc % 32 != 32 / G) ++ldc;
+  const size_t smem = sizeof(float) * ((size_t)M * ldc + 3 * (size_t)M + 3 * (size_t)N);
+  cudaError_t err = set_smem(reinterpret_cast<const void*>(matcher_sinkhorn_kernel<NPL>), smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  matcher_sinkhorn_kernel<NPL><<<B, T, smem, st>>>(cosv, inter, at, ap, rm, cm, X, M, N, S,
+                                                    ldc, G, iou_weight, epsilon, iters,
+                                                    anneal, epsilon_init, log_decay);
   return static_cast<int>(cudaGetLastError());
 }
 
-bool bad_sizes(int B, int M, int N) {
-  return M < 1 || M * NT > MAX_PAIRS * POOL_THREADS || N < 1 || B < 1;
+// ---- host side ---------------------------------------------------------------
+
+int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// Pixels per slice of the cost phase: a multiple of PT.
+int slice_len(int Pc, int s) { return cdiv(cdiv(Pc, s), PT) * PT; }
+
+// Pixel slices of the cost phase: enough blocks that B=4 fills the card.
+int pixel_slices(int B, int N, int Pc) {
+  const int want = cdiv(TARGET_BLOCKS, cdiv(N, NT) * B);
+  const int s = std::max(1, std::min(want, cdiv(Pc, PT)));
+  return cdiv(Pc, slice_len(Pc, s));
+}
+
+bool bad_sizes(int B, int M, int N, int Pc, int D) {
+  return B < 1 || M < 1 || M > MAX_M || N < 1 || N > MAX_N || Pc < 1 || D < 1;
+}
+
+// Scratch floats after pf: cos (B, M, N), inter (B, S, M, N), at (B, S, M), ap (B, S, N).
+size_t cost_scratch(int B, int M, int N, int S) {
+  return (size_t)B * M * N + (size_t)B * S * ((size_t)M * N + M + N);
+}
+
+int launch_cost_and_sinkhorn(const float* tm, const float* pm, const float* tf,
+                             const float* pf, const float* rm, const float* cm, float* scratch,
+                             float* X, int B, int M, int N, int Pc, int D, float epsilon,
+                             int iters, float iou_weight, int anneal, float epsilon_init,
+                             float log_decay, cudaStream_t st) {
+  const int S = pixel_slices(B, N, Pc);
+  const int chunk = slice_len(Pc, S);
+  float* cosv = scratch;
+  float* inter = cosv + (size_t)B * M * N;
+  float* at = inter + (size_t)B * S * M * N;
+  float* ap = at + (size_t)B * S * M;
+
+  const int rows = cdiv(M, MG);             // template rows per thread
+  int err = static_cast<int>(cudaErrorInvalidValue);
+#define DMM_COST(R)                                                                     \
+  else if (rows <= R) err = launch_cost<R>(tm, pm, tf, pf, cosv, inter, at, ap, B, M, N, \
+                                           Pc, D, S, chunk, st);
+  if (false) {}
+  DMM_COST(1) DMM_COST(2) DMM_COST(4) DMM_COST(8)
+#undef DMM_COST
+  if (err != 0) return err;
+
+  const int npl = cdiv(N, 32);
+#define DMM_SINKHORN(P)                                                                  \
+  if (npl <= P)                                                                          \
+    return launch_sinkhorn<P>(cosv, inter, at, ap, rm, cm, X, B, M, N, S, iou_weight,    \
+                              epsilon, iters, anneal, epsilon_init, log_decay, st);
+  DMM_SINKHORN(1) DMM_SINKHORN(2) DMM_SINKHORN(4) DMM_SINKHORN(8) DMM_SINKHORN(16)
+  DMM_SINKHORN(32)
+#undef DMM_SINKHORN
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
+// Floats of scratch the wrapper allocates for one call (pooling: B1, with pf).
+extern "C" long long dmm_matcher_scratch_floats(int B, int M, int N, int Pc, int D,
+                                                int pooling) {
+  if (bad_sizes(B, M, N, Pc, D)) return -1;
+  const int S = pixel_slices(B, N, Pc);
+  return static_cast<long long>(cost_scratch(B, M, N, S) +
+                                (pooling ? (size_t)B * N * D : 0));
+}
+
 extern "C" int dmm_fused_pool_cost_match(
     const float* emb, const float* pmask_pool, const float* tm, const float* pm,
-    const float* tf, const float* rm, const float* cm, float* pf_scratch,
-    float* cost_scratch, float* X, int B, int M, int N, int P, int Pc, int D,
-    float epsilon, int iters, float iou_weight, int anneal, float epsilon_init,
-    float log_decay, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bad_sizes(B, M, N)) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid((N + NT - 1) / NT, B);
-  pool_cost_kernel<<<grid, POOL_THREADS, cost_smem(M, true), s>>>(
-      emb, pmask_pool, tm, pm, tf, pf_scratch, cost_scratch, M, N, P, Pc, D, iou_weight);
+    const float* tf, const float* rm, const float* cm, float* scratch, float* X, int B,
+    int M, int N, int P, int Pc, int D, float epsilon, int iters, float iou_weight,
+    int anneal, float epsilon_init, float log_decay, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (bad_sizes(B, M, N, Pc, D) || P < 1 || cdiv(D, PD) > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  float* pf = scratch;
+  const size_t pool_smem = sizeof(float) * 2 * (size_t)(PN + PT) * LDT;
+  matcher_pool_kernel<<<dim3(cdiv(N, PN), cdiv(D, PD), B), THREADS, pool_smem, st>>>(
+      emb, pmask_pool, pf, N, P, D);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  return launch_sinkhorn(cost_scratch, rm, cm, X, B, M, N, epsilon, iters, anneal,
-                         epsilon_init, log_decay, s);
+  return launch_cost_and_sinkhorn(tm, pm, tf, pf, rm, cm, scratch + (size_t)B * N * D, X, B,
+                                  M, N, Pc, D, epsilon, iters, iou_weight, anneal,
+                                  epsilon_init, log_decay, st);
 }
 
 // Kernel B3: cost from pooled features, then Sinkhorn at a fixed epsilon.
 extern "C" int dmm_fused_cost_match(const float* tm, const float* pm, const float* tf,
                                     const float* pf, const float* rm, const float* cm,
-                                    float* cost_scratch, float* X, int B, int M, int N,
-                                    int P, int D, float epsilon, int iters,
-                                    float iou_weight, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bad_sizes(B, M, N)) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid((N + NT - 1) / NT, B);
-  cost_kernel<<<grid, POOL_THREADS, cost_smem(M, false), s>>>(tm, pm, tf, pf, cost_scratch,
-                                                             M, N, P, D, iou_weight);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return launch_sinkhorn(cost_scratch, rm, cm, X, B, M, N, epsilon, iters, 0, 0.f, 0.f, s);
+                                    float* scratch, float* X, int B, int M, int N, int P,
+                                    int D, float epsilon, int iters, float iou_weight,
+                                    void* stream) {
+  if (bad_sizes(B, M, N, P, D)) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_cost_and_sinkhorn(tm, pm, tf, pf, rm, cm, scratch, X, B, M, N, P, D, epsilon,
+                                  iters, iou_weight, 0, 0.f, 0.f,
+                                  static_cast<cudaStream_t>(stream));
 }

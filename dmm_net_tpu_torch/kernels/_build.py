@@ -39,22 +39,28 @@ _LAUNCHES: Dict[str, int] = {"fused_pool_cost_match": 0,
                              "roi_align": 0}
 
 # C signatures: every pointer and the stream are c_void_p (a bare Python int
-# would be passed as a 32-bit int and cut the pointer).
+# would be passed as a 32-bit int and cut the pointer). Every function
+# returns a cudaError_t as int, except those in _RESTYPES.
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "matcher": {
         "dmm_fused_pool_cost_match":
-            [_P] * 10 + [_I] * 6 + [_F, _I, _F, _I, _F, _F, _P],
+            [_P] * 9 + [_I] * 6 + [_F, _I, _F, _I, _F, _F, _P],
         "dmm_fused_cost_match": [_P] * 8 + [_I] * 5 + [_F, _I, _F, _P],
+        "dmm_matcher_scratch_floats": [_I] * 6,
     },
     "resolve": {
         "dmm_resolve_upsample_f32": [_P] * 7 + [_I] * 6 + [_F, _P],
         "dmm_resolve_upsample_bf16": [_P] * 7 + [_I] * 6 + [_F, _P],
     },
     "roi_align": {
-        "dmm_roi_align": [_P] * 3 + [_I] * 7 + [_F, _P],
+        "dmm_roi_align":
+            [_P] * 4 + [_I] * 8 + [_F] * 4 + [_I] + [_P] * 3 + [_I] * 5 + [_P],
     },
 }
+
+
+_RESTYPES = {"dmm_matcher_scratch_floats": ctypes.c_longlong}
 
 
 def nvcc_path() -> str:
@@ -108,7 +114,7 @@ def _bind(name: str, lib: Path) -> ctypes.CDLL:
     for fn, argtypes in _SIGNATURES[name].items():
         f = getattr(handle, fn)
         f.argtypes = argtypes
-        f.restype = ctypes.c_int
+        f.restype = _RESTYPES.get(fn, ctypes.c_int)
     return handle
 
 

@@ -5,10 +5,12 @@ B1 ``fused_pool_cost_match`` replaces the TPU kernel
 ``_fused_pool_cost_match`` (its body ``_pool_matcher_kernel``) in
 dmm_net_tpu/kernels/matcher.py; B3 ``fused_cost_match`` replaces that
 file's ``_pallas_forward`` (public ``fused_cost_match``). The CUDA source
-is ``csrc/matcher.cu``; its header says how the work is split and what
-bounds it on the card (bytes: ~49 MB read by B1 at p3 B=16, ~15 us at
-3.35 TB/s; ~40 MB by B3 at B=16, P=4096, ~12 us). Forward only: serving
-needs no gradient, and the backward comes with the training slice as a
+is ``csrc/matcher.cu``: B1 is three launches (pooling, the cost phase
+spread over pixel slices, Sinkhorn), B3 the last two. Its header says how
+the work is split and what bounds it on the card (bytes: ~49 MB read by B1
+at p3 B=16, ~15 us at 3.35 TB/s; the Sinkhorn's dependent iterations are a
+latency floor at small batches). Forward only: serving needs no gradient,
+and the backward comes with the training slice as a
 ``torch.autograd.Function``.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs its
@@ -28,7 +30,7 @@ from dmm_net_tpu_torch.kernels import _build
 from dmm_net_tpu_torch.ops.cost import cost_matrix
 from dmm_net_tpu_torch.ops.matching import sinkhorn_match
 
-_MAX_M = 64     # csrc/matcher.cu: M * 16 proposals per block <= 4 * 256 threads
+_MAX_M = 64     # csrc/matcher.cu: 8 template rows per thread x 8 warps
 
 
 def _bool(mask: torch.Tensor) -> torch.Tensor:
@@ -52,6 +54,17 @@ def _check_cuda_inputs(what, shapes, M) -> None:
                              f" (contiguous={t.is_contiguous()})")
     if not 1 <= M <= _MAX_M:
         raise ValueError(f"{what}: M={M} outside [1, {_MAX_M}]")
+
+
+def _scratch(lib, device, B, M, N, Pc, D, pooling: bool) -> torch.Tensor:
+    """The kernels' float32 scratch (pooled features, cosine, and the cost
+    phase's per-slice partial sums); its size comes from the CUDA source,
+    which chooses the slices."""
+    n = lib.dmm_matcher_scratch_floats(B, M, N, Pc, D, int(pooling))
+    if n < 0:
+        raise ValueError(f"matcher: sizes B={B} M={M} N={N} Pc={Pc} D={D} "
+                         "not taken by the kernel")
+    return torch.empty((n,), dtype=torch.float32, device=device)
 
 
 def pool_cost_match_plain(emb, prop_masks_pool, tmpl_masks_cost,
@@ -107,21 +120,20 @@ def fused_pool_cost_match(emb: torch.Tensor, prop_masks_pool: torch.Tensor,
     _check_cuda_inputs("fused_pool_cost_match", shapes, M)
     rm = row_mask.to(torch.float32).contiguous()
     cm = col_mask.to(torch.float32).contiguous()
-    pf = torch.empty((B, N, D), dtype=torch.float32, device=emb.device)
-    cost = torch.empty((B, M, N), dtype=torch.float32, device=emb.device)
+    lib = _build.library("matcher")
+    scratch = _scratch(lib, emb.device, B, M, N, Pc, D, pooling=True)
     X = torch.empty((B, M, N), dtype=torch.float32, device=emb.device)
     anneal = epsilon_init is not None and epsilon_init > epsilon
     log_decay = 0.0
     if anneal:
         steps = max(int(iters * 0.7), 1)
         log_decay = math.log((epsilon / epsilon_init) ** (1.0 / steps))
-    lib = _build.library("matcher")
     with torch.cuda.device(emb.device):
         err = lib.dmm_fused_pool_cost_match(
             emb.data_ptr(), prop_masks_pool.data_ptr(),
             tmpl_masks_cost.data_ptr(), prop_masks_cost.data_ptr(),
-            tmpl_feats.data_ptr(), rm.data_ptr(), cm.data_ptr(), pf.data_ptr(),
-            cost.data_ptr(), X.data_ptr(), B, M, N, P, Pc, D, float(epsilon),
+            tmpl_feats.data_ptr(), rm.data_ptr(), cm.data_ptr(),
+            scratch.data_ptr(), X.data_ptr(), B, M, N, P, Pc, D, float(epsilon),
             int(iters), float(iou_weight), int(anneal),
             float(epsilon_init or 0.0), float(log_decay),
             torch.cuda.current_stream(emb.device).cuda_stream)
@@ -172,13 +184,13 @@ def fused_cost_match(tmpl_masks: torch.Tensor, prop_masks: torch.Tensor,
     dev = tmpl_masks.device
     rm = row_mask.to(torch.float32).contiguous()
     cm = col_mask.to(torch.float32).contiguous()
-    cost = torch.empty((B, M, N), dtype=torch.float32, device=dev)
-    X = torch.empty((B, M, N), dtype=torch.float32, device=dev)
     lib = _build.library("matcher")
+    scratch = _scratch(lib, dev, B, M, N, P, D, pooling=False)
+    X = torch.empty((B, M, N), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = lib.dmm_fused_cost_match(
             tmpl_masks.data_ptr(), prop_masks.data_ptr(), tmpl_feats.data_ptr(),
-            prop_feats.data_ptr(), rm.data_ptr(), cm.data_ptr(), cost.data_ptr(),
+            prop_feats.data_ptr(), rm.data_ptr(), cm.data_ptr(), scratch.data_ptr(),
             X.data_ptr(), B, M, N, P, D, float(epsilon), int(iters),
             float(iou_weight), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fused_cost_match")

@@ -4,16 +4,17 @@ Counterpart of the JAX package's models/proposal/maskrcnn.py, NCHW, float32:
 
     backbone (c2..c5) -> FPN (p2..p6) -> RPN head per level
       -> per-level top-k -> joint NMS -> post_nms_top_n proposals
-      -> ROI-Align (kernel B4) on every level, select by the FPN level rule
+      -> ROI-Align (kernel B4), each box on its FPN level
       -> box head -> best class, class boxes -> class-aware NMS
       -> ROI-Align -> mask head -> 28x28 mask of the chosen class
 
 Every stage keeps a fixed count with a validity mask, as the reference does,
 so nothing is read back to the host inside ``forward``. Each stage runs in a
 ``torch.profiler.record_function`` range named ``detector/<stage>``, so a
-profile splits the device time by stage. ROI-Align runs on all
-four levels and keeps each box's assigned level (8 launches per image: four
-levels for each head), the reference's static-shape design.
+profile splits the device time by stage. ROI-Align aligns each box on its
+assigned level only, all levels in one launch (2 launches per image, one
+for each head); the reference aligns every box on all four levels and
+keeps one, and the output is the same.
 
 Module names are the flax names (``backbone``, ``fpn``, ``rpn``,
 ``box_head``, ``mask_head``, ``fc6``, ``conv5_mask``, ...), so the weight
@@ -30,7 +31,7 @@ import torch.nn.functional as F
 from torch.profiler import record_function
 
 from dmm_net_tpu_torch import resolve_device
-from dmm_net_tpu_torch.kernels.roi_align import roi_align
+from dmm_net_tpu_torch.kernels.roi_align import multilevel_roi_align
 from dmm_net_tpu_torch.models.layers import Conv, ConvTranspose, init_random
 from dmm_net_tpu_torch.models.proposal.anchors import (clip_to_image,
                                                        decode_boxes,
@@ -94,17 +95,11 @@ class MaskHead(nn.Module):
 
 def _multilevel_roi_align(pyramid: Dict[str, torch.Tensor], boxes: torch.Tensor,
                           out_size: Tuple[int, int]) -> torch.Tensor:
-    """ROI-Align on p2..p5 (one kernel launch each), then keep each box's
-    level floor(4 + log2(sqrt(area) / 224 + 1e-9)) clipped to [2, 5].
-    boxes (K, 4) in image coordinates -> (K, C, oh, ow)."""
-    areas = ((boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1])).clamp_min(1e-6)
-    lvl = torch.floor(4.0 + torch.log2(torch.sqrt(areas) / 224.0 + 1e-9))
-    lvl = lvl.clamp(2, 5).long() - 2
-    stacked = torch.stack([
-        roi_align(pyramid[name][0], boxes, out_size, sampling_ratio=2,
-                  spatial_scale=1.0 / 2 ** (i + 2))
-        for i, name in enumerate(_ROI_LEVELS)])          # (4, K, C, oh, ow)
-    return stacked[lvl, torch.arange(boxes.shape[0], device=boxes.device)]
+    """ROI-Align of each box on its own level of p2..p5, level
+    floor(4 + log2(sqrt(area) / 224 + 1e-9)) clipped to [2, 5]: one kernel
+    launch. boxes (K, 4) in image coordinates -> (K, C, oh, ow)."""
+    return multilevel_roi_align([pyramid[name][0] for name in _ROI_LEVELS], boxes,
+                                out_size, sampling_ratio=2)
 
 
 class MaskRCNN(nn.Module):

@@ -17,7 +17,9 @@ from dmm_net_tpu_torch.kernels.matcher import (cost_match_plain,
                                                pool_cost_match_plain)
 from dmm_net_tpu_torch.kernels.resolve import (fused_resolve_upsample,
                                                resolve_upsample_plain)
-from dmm_net_tpu_torch.kernels.roi_align import roi_align
+from dmm_net_tpu_torch.kernels.roi_align import (multilevel_roi_align,
+                                                 multilevel_roi_align_plain,
+                                                 roi_align)
 from dmm_net_tpu_torch.ops.roi_pool import roi_align_mxu
 
 
@@ -46,8 +48,11 @@ def _matcher_problem(gen, B, M, N, P, D, Pc):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(4, 16, 128, 448, 256, 4096),   # p3
-                                   (2, 32, 256, 448, 256, 4096),   # p4
+@pytest.mark.parametrize("shape", [(16, 16, 128, 448, 256, 4096),  # p3 B=16
+                                   (4, 16, 128, 448, 256, 4096),   # p3 B=4
+                                   (4, 32, 256, 448, 256, 4096),   # p4 B=4
+                                   (4, 16, 100, 448, 256, 4096),   # N % 32 != 0
+                                   (2, 64, 40, 450, 130, 1000),    # M at its limit
                                    (3, 5, 19, 37, 24, 300)])       # unaligned
 @pytest.mark.parametrize("eps_init", [None, 0.5])
 def test_cuda_matcher_matches_plain(cuda_kernels, shape, eps_init):
@@ -153,4 +158,35 @@ def test_cuda_roi_align_without_boxes_launches_nothing(cuda_kernels):
     out = roi_align(torch.randn(8, 16, 16, device="cuda"),
                     torch.zeros(0, 4, device="cuda"), (14, 14))
     assert out.shape == (0, 8, 14, 14)
+    assert _build.launch_counts()["roi_align"] == 0
+
+
+def _pyramid(gen, C=256, image=(256, 448)):
+    return [torch.randn(C, -(-image[0] // 2 ** l), -(-image[1] // 2 ** l),
+                        device="cuda", generator=gen) for l in (2, 3, 4, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out_size", [(7, 7), (14, 14)])
+def test_cuda_multilevel_roi_align_matches_plain(cuda_kernels, out_size):
+    """The detector's shapes: 256x448 pyramid, K=128, C=256; one launch."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    levels = _pyramid(gen)
+    boxes = _boxes(gen, 128, 256, 448)
+    boxes[-1] = torch.tensor([0.0, 0.0, 448.0, 256.0], device="cuda")
+    _build.reset_launch_counts()
+    got = multilevel_roi_align(levels, boxes, out_size)
+    assert _build.launch_counts()["roi_align"] == 1
+    want = multilevel_roi_align_plain(levels, boxes, out_size)
+    assert got.shape == (128, 256) + out_size
+    torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_multilevel_roi_align_without_boxes_launches_nothing(cuda_kernels):
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    _build.reset_launch_counts()
+    out = multilevel_roi_align(_pyramid(gen, C=16), torch.zeros(0, 4, device="cuda"),
+                               (7, 7))
+    assert out.shape == (0, 16, 7, 7)
     assert _build.launch_counts()["roi_align"] == 0

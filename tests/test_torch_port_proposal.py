@@ -20,11 +20,14 @@ from dmm_net_tpu.models.proposal.maskrcnn import BoxHead as JaxBoxHead
 from dmm_net_tpu.models.proposal.maskrcnn import MaskHead as JaxMaskHead
 from dmm_net_tpu.models.proposal.maskrcnn import MaskRCNN as JaxMaskRCNN
 from dmm_net_tpu.models.proposal.maskrcnn import RPNHead as JaxRPNHead
+from dmm_net_tpu.models.proposal.maskrcnn import \
+    _multilevel_roi_align as jax_multilevel_roi_align
 from dmm_net_tpu.ops.nms import nms_boxes as jax_nms_boxes
 from dmm_net_tpu.ops.nms import nms_masks as jax_nms_masks
 from dmm_net_tpu.ops.roi_pool import roi_align as jax_roi_align
 from dmm_net_tpu.ops.roi_pool import roi_align_mxu as jax_roi_align_mxu
 from dmm_net_tpu_torch.kernels import launch_counts, reset_launch_counts
+from dmm_net_tpu_torch.kernels.roi_align import fpn_levels, multilevel_roi_align
 from dmm_net_tpu_torch.kernels.roi_align import roi_align as b4_roi_align
 from dmm_net_tpu_torch.models.layers import ConvTranspose
 from dmm_net_tpu_torch.models.proposal import MaskRCNN
@@ -195,6 +198,48 @@ def test_b4_wrapper_on_cpu_matches_pallas_interpret(out_size, scale, border):
                        2, scale)
     assert launch_counts()["roi_align"] == 0
     np.testing.assert_allclose(_nhwc(got), want, atol=1e-4, rtol=1e-4)
+
+
+def multilevel_problem(seed, C=8, image=(256, 512)):
+    """FPN maps p2..p5 of a 256x512 image (p2 64x128) and boxes that take
+    every level: sqrt(area) at the level boundaries 112, 224 and 448 +- 1e-3,
+    boxes across the border, boxes under one cell of p2, random boxes."""
+    rng = np.random.RandomState(seed)
+    H, W = image
+    maps = {f"p{l}": rng.randn(1, H >> l, W >> l, C).astype(np.float32)
+            for l in (2, 3, 4, 5)}
+    rows = []
+    for side in (112.0, 224.0, 448.0):
+        for d in (-1e-3, 1e-3):
+            x, y = rng.rand(2) * [W - 100, H - 100]
+            rows.append([x, y, x + side + d, y + side + d])
+    rows += [[-20.0, -9.0, 90.0, 70.0],           # across the top-left corner
+             [W - 50.0, H - 30.0, W + 200.0, H + 150.0],
+             [0.0, 0.0, W, H],                    # the whole image
+             [33.1, 17.4, 33.9, 18.0],            # under one cell of p2
+             [W - 1.5, 5.0, W - 0.2, 7.5]]
+    xy = rng.rand(12, 2) * [W, H]
+    wh = 2.0 + rng.rand(12, 2) ** 2 * [W, H]
+    rows += np.concatenate([xy - 0.3 * wh, xy + 0.7 * wh], 1).tolist()
+    return maps, np.asarray(rows, np.float32)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("out_size", [(7, 7), (14, 14)])
+def test_multilevel_roi_align_matches_jax(out_size, seed):
+    """B4's multi-level wrapper on the CPU (its plain version) against the
+    reference's align-everywhere-then-select, with each level taken."""
+    maps, boxes = multilevel_problem(seed)
+    want = np.asarray(jax_multilevel_roi_align(
+        {k: jnp.asarray(v) for k, v in maps.items()}, jnp.asarray(boxes), out_size))
+    b = torch.from_numpy(boxes)
+    assert sorted(set(fpn_levels(b).tolist())) == [0, 1, 2, 3]
+    reset_launch_counts()
+    got = multilevel_roi_align([_nchw(maps[f"p{l}"])[0] for l in (2, 3, 4, 5)], b,
+                               out_size)
+    assert launch_counts()["roi_align"] == 0
+    assert got.shape == (len(boxes), 8) + out_size
+    np.testing.assert_allclose(_nhwc(got), want, atol=1e-5, rtol=0)
 
 
 # ---------------------------------------------------------------------------
