@@ -50,8 +50,11 @@ _SIGNATURES = {
         "dmm_matcher_scratch_floats": [_I] * 6,
     },
     "resolve": {
-        "dmm_resolve_upsample_f32": [_P] * 7 + [_I] * 6 + [_F, _P],
-        "dmm_resolve_upsample_bf16": [_P] * 7 + [_I] * 6 + [_F, _P],
+        "dmm_resolve_upsample_f32": [_P] * 9 + [_I] * 8 + [_F, _P],
+        "dmm_resolve_upsample_bf16": [_P] * 9 + [_I] * 8 + [_F, _P],
+        "dmm_resolve_smem_bytes": [_I] * 3,
+        "dmm_resolve_band_rows": [],
+        "dmm_resolve_tile_cols": [],
     },
     "roi_align": {
         "dmm_roi_align":
@@ -60,7 +63,8 @@ _SIGNATURES = {
 }
 
 
-_RESTYPES = {"dmm_matcher_scratch_floats": ctypes.c_longlong}
+_RESTYPES = {"dmm_matcher_scratch_floats": ctypes.c_longlong,
+             "dmm_resolve_smem_bytes": ctypes.c_longlong}
 
 
 def nvcc_path() -> str:

@@ -1,18 +1,37 @@
-"""Fused bilinear-upsample + overlap-argmax label resolution.
+"""Fused bilinear-upsample + overlap-argmax label resolution (kernel B2).
 
 Replaces the TPU kernel ``fused_resolve_upsample`` (body ``_resolve_kernel``)
 in dmm_net_tpu/kernels/resolve.py. The decoder leaves logits at its stride-4
 mask grid; this turns them into full-resolution uint8 labels without ever
-materialising the (B, M, H, W) upsampled logits. The CUDA source is
-``csrc/resolve.cu`` (one thread per output pixel, two row and two column
-taps, bf16-rounded column pass, running max/argmax over valid slots). What
-bounds it on the card is bytes: at p3 B=16 it must read 7.3 MB of float32
-logits and write 1.8 MB of labels, ~2.7 us at 3.35 TB/s.
+materialising the (B, M, H, W) upsampled logits.
+
+The CUDA source is ``csrc/resolve.cu``: one block per (batch element, band
+of 32 output rows, tile of 32 output columns; the source fixes both and
+tells the wrapper through ``dmm_resolve_band_rows`` and
+``dmm_resolve_tile_cols``). The block compacts the valid slots once,
+stages each valid object's window of logits in shared memory, runs the
+column pass once per
+(object, window row, output column), then each thread walks the valid
+objects in index order for 4 columns of 2 rows with the running max and
+argmax in registers. ``band_windows`` and ``tile_windows`` cut the windows
+(each band's and tile's first input row or column, and the largest window,
+which sizes shared memory); the wrapper raises where they would not fit.
+
+On an NVIDIA H100 80GB HBM3 at a 700 W power limit it takes 0.0195 ms at p3
+B=16 (16 objects, 64x112 -> 256x448, float32 logits, 190 of 256 slots
+valid) against a bound of 0.0022 ms (the valid slots' 5.45 MB of logits
+read and 1.84 MB of labels written at 3.35 TB/s), and 0.0075 ms at the main
+path's B=4 (bound 0.00054 ms). Bytes do not bound it: the row pass and
+argmax (about six instructions per pixel and valid object) and the
+per-block work around them do (phase cuts in PERF.md).
 
 Semantics (both versions): logits are rounded to bf16, the column pass
 (w -> W) is rounded to bf16, the row pass (h -> H) accumulates in f32;
 invalid slots never win; strict ``>`` keeps the lower index on ties;
 label = idx + 1 where the best value > logit(bg_threshold), else 0.
+Every product is of two bf16 values, exact in f32, and every sum has at
+most two nonzero terms, so each pass rounds once in any order: the kernel,
+``resolve_upsample_plain`` and the dense-matmul form give equal labels.
 """
 
 from __future__ import annotations
@@ -69,12 +88,73 @@ def _taps(n_in: int, n_out: int) -> Tuple[np.ndarray, np.ndarray]:
     return idx, wts
 
 
+@functools.lru_cache(maxsize=32)
+def _pair_taps(n_in: int, n_out: int) -> Tuple[np.ndarray, np.ndarray]:
+    """The taps as a pair of neighbours: first index (n_out,) int32 and the
+    weights of it and of the next (n_out, 2) f32 (0 where the matrix has
+    one nonzero). The first index is at most n_in - 2, so that both lie in
+    [0, n_in) for n_in >= 2."""
+    idx, wts = _taps(n_in, n_out)
+    first = np.minimum(idx[:, 0], max(n_in - 2, 0)).astype(np.int32)
+    pair = np.zeros((n_out, 2), np.float32)
+    for k in range(2):
+        pos = idx[:, k] - first
+        if not ((pos >= 0) & (pos <= 1)).all():
+            raise AssertionError("interp taps are not neighbours")
+        np.add.at(pair, (np.arange(n_out), pos), wts[:, k])
+    return first, pair
+
+
+def _windows(first: np.ndarray, last: np.ndarray, n_in: int,
+             band: int) -> Tuple[np.ndarray, int]:
+    """Windows of one size over the inputs that each band of ``band``
+    outputs reads (output o reads first[o]..last[o]), each moved left where
+    it would pass the last input."""
+    n_bands = -(-first.shape[0] // band)
+    lo = np.array([first[k * band:(k + 1) * band].min()
+                   for k in range(n_bands)], np.int32)
+    hi = np.array([last[k * band:(k + 1) * band].max()
+                   for k in range(n_bands)], np.int32)
+    size = int((hi - lo).max()) + 1
+    return np.minimum(lo, n_in - size).astype(np.int32), size
+
+
+@functools.lru_cache(maxsize=32)
+def band_windows(n_in: int, n_out: int, band: int) -> Tuple[np.ndarray, int]:
+    """The input rows each band of ``band`` output rows reads: where each
+    band's window starts, lo (n_bands,) int32, and the rows of the largest
+    window, ``size``. Every tap of every output row of band k lies in
+    [lo[k], lo[k] + size), and lo[k] + size <= n_in."""
+    idx, _ = _taps(n_in, n_out)
+    return _windows(idx.min(1), idx.max(1), n_in, band)
+
+
+@functools.lru_cache(maxsize=32)
+def tile_windows(n_in: int, n_out: int, tile: int) -> Tuple[np.ndarray, int]:
+    """The same for the input columns each tile of ``tile`` output columns
+    reads through its neighbour-pair taps (``_pair_taps``; a single input
+    column is read with a copy of itself beside it)."""
+    first, _ = _pair_taps(n_in, n_out)
+    return _windows(first, first + 1, max(n_in, 2), tile)
+
+
 @functools.lru_cache(maxsize=16)
-def _device_taps(h: int, w: int, H: int, W: int, device: str):
+def _plan(h: int, w: int, H: int, W: int, M: int, device: str):
+    """One shape's taps and windows on the device, in the kernel's argument
+    order, and the window sizes; raises where the windows and M would not
+    fit in a block's shared memory."""
+    lib = _build.library("resolve")
+    rlo, nwr = band_windows(h, H, lib.dmm_resolve_band_rows())
+    clo, nwc = tile_windows(w, W, lib.dmm_resolve_tile_cols())
+    if lib.dmm_resolve_smem_bytes(nwr, nwc, M) < 0:
+        raise ValueError(f"{h}x{w} -> {H}x{W}, M={M}: a block's windows of "
+                         f"{nwr} input rows by {nwc} input columns do not fit "
+                         f"in shared memory")
     ri, rw = _taps(h, H)
-    ci, cw = _taps(w, W)
+    ci, cw = _pair_taps(w, W)
     dev = torch.device(device)
-    return tuple(torch.from_numpy(a).to(dev) for a in (ri, rw, ci, cw))
+    taps = tuple(torch.from_numpy(a).to(dev) for a in (rlo, clo, ri, rw, ci, cw))
+    return taps, nwr, nwc
 
 
 def _bg_logit(bg_threshold: float) -> float:
@@ -127,17 +207,18 @@ def fused_resolve_upsample(logits: torch.Tensor, tmpl_valid: torch.Tensor,
         raise ValueError("logits must be contiguous")
     if not 1 <= M <= 255:
         raise ValueError(f"M={M}: labels are uint8, so 1 <= M <= 255")
-
+    taps, nwr, nwc = _plan(h, w, H, W, M, str(logits.device))
+    if w == 1:                 # the kernel reads each tap with its right neighbour
+        logits = torch.cat([logits, logits], dim=-1)
     valid = tmpl_valid.to(torch.uint8).contiguous()
-    ri, rw, ci, cw = _device_taps(h, w, H, W, str(logits.device))
     out = torch.empty((B, H, W), dtype=torch.uint8, device=logits.device)
     lib = _build.library("resolve")
     fn = (lib.dmm_resolve_upsample_f32 if logits.dtype == torch.float32
           else lib.dmm_resolve_upsample_bf16)
     with torch.cuda.device(logits.device):
-        err = fn(logits.data_ptr(), valid.data_ptr(), ri.data_ptr(),
-                 rw.data_ptr(), ci.data_ptr(), cw.data_ptr(), out.data_ptr(),
-                 B, M, h, w, H, W, _bg_logit(bg_threshold),
+        err = fn(logits.data_ptr(), valid.data_ptr(), *(t.data_ptr() for t in taps),
+                 out.data_ptr(), B, M, h, logits.shape[-1], H, W, nwr, nwc,
+                 _bg_logit(bg_threshold),
                  torch.cuda.current_stream(logits.device).cuda_stream)
     _build.check(err, "fused_resolve_upsample")
     _build.count("fused_resolve_upsample")

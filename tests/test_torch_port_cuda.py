@@ -66,18 +66,50 @@ def test_cuda_matcher_matches_plain(cuda_kernels, shape, eps_init):
     assert (got.transpose(1, 2)[~cm] == 0).all()
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_cuda_resolve_matches_plain(cuda_kernels, dtype):
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    lg = torch.randn(4, 16, 64, 112, device="cuda", generator=gen) * 3
-    v = torch.rand(4, 16, device="cuda", generator=gen) > 0.3
+def _resolve_problem(gen, B, M, h, w, dead=False):
+    """Logits with ~70% valid slots whose invalid slots carry the largest
+    logits; ``dead``: the last batch element has no valid slot."""
+    lg = torch.randn(B, M, h, w, device="cuda", generator=gen) * 3
+    v = torch.rand(B, M, device="cuda", generator=gen) > 0.3
     v[:, 0] = True
-    lg[~v] = 50.0                       # invalid slots carry the largest logits
-    got = fused_resolve_upsample(lg.to(dtype), v, (256, 448))
-    want = resolve_upsample_plain(lg.to(dtype), v, (256, 448))
-    assert got.dtype == torch.uint8 and got.shape == (4, 256, 448)
-    assert (got != want).float().mean().item() < 1e-3
+    if dead:
+        v[-1] = False
+    lg[~v] = 50.0
+    return lg, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(16, 16, 64, 112, 256, 448),    # p3 B=16
+                                   (4, 16, 64, 112, 256, 448),     # p3 B=4
+                                   (1, 32, 64, 112, 256, 448),     # p4
+                                   (4, 16, 120, 216, 480, 864),    # p3_480p
+                                   (2, 40, 64, 112, 256, 448),     # M over a chunk
+                                   (2, 5, 17, 29, 67, 115),        # non-integer scale
+                                   (2, 3, 7, 1, 7, 9)],            # w == 1
+                         ids=["p3-B16", "p3-B4", "p4", "p3_480p", "M40", "unaligned",
+                              "w1"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_resolve_matches_plain(cuda_kernels, shape, dtype):
+    """Every product is of two bf16 values and every sum has at most two
+    nonzero terms, so the kernel's labels equal the plain version's."""
+    B, M, h, w, H, W = shape
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    lg, v = _resolve_problem(gen, B, M, h, w)
+    got = fused_resolve_upsample(lg.to(dtype), v, (H, W))
+    want = resolve_upsample_plain(lg.to(dtype), v, (H, W))
+    assert got.dtype == torch.uint8 and got.shape == (B, H, W)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_resolve_launches_once_and_leaves_dead_elements_unlabelled(cuda_kernels):
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    lg, v = _resolve_problem(gen, 2, 16, 64, 112, dead=True)
+    _build.reset_launch_counts()
+    got = fused_resolve_upsample(lg, v, (256, 448))
+    assert _build.launch_counts()["fused_resolve_upsample"] == 1
+    assert (got[1] == 0).all() and (got[0] > 0).any()
+    assert torch.equal(got, resolve_upsample_plain(lg, v, (256, 448)))
 
 
 @pytest.mark.cuda
@@ -86,6 +118,11 @@ def test_cuda_wrappers_reject_bad_inputs(cuda_kernels):
     with pytest.raises(ValueError, match="float32 or bfloat16"):
         fused_resolve_upsample(lg, torch.ones(1, 3, dtype=torch.bool,
                                               device="cuda"), (16, 16))
+    # an 8x downsample: a band's windows would not fit in shared memory
+    lg = torch.randn(1, 3, 256, 448, device="cuda")
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_resolve_upsample(lg, torch.ones(1, 3, dtype=torch.bool,
+                                              device="cuda"), (32, 56))
     gen = torch.Generator(device="cuda").manual_seed(2)
     arrs = list(_matcher_problem(gen, 1, 4, 8, 16, 8, 64))
     arrs[0] = arrs[0].transpose(1, 2).contiguous().transpose(1, 2)

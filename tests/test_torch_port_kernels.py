@@ -26,9 +26,11 @@ from dmm_net_tpu_torch.kernels.matcher import (cost_match_plain,
                                                fused_pool_cost_match,
                                                pool_cost_match_plain)
 from dmm_net_tpu_torch.kernels.roi_align import roi_align
-from dmm_net_tpu_torch.kernels.resolve import (_interp_matrix, _taps,
+from dmm_net_tpu_torch.kernels.resolve import (_interp_matrix, _pair_taps,
+                                               _taps, band_windows,
                                                fused_resolve_upsample,
-                                               resolve_upsample_plain)
+                                               resolve_upsample_plain,
+                                               tile_windows)
 
 
 def _matcher_problem(seed, B, M, N, P, D, Pc, n_rows, n_cols):
@@ -148,6 +150,41 @@ def test_interp_matrix_and_taps(n_in, n_out):
             rebuilt[idx[o, k], o] += w[o, k]
     want = torch.from_numpy(mat).to(torch.bfloat16).float().numpy()
     np.testing.assert_array_equal(rebuilt, want)
+    # so do the neighbour-pair taps the kernel reads
+    first, pair = _pair_taps(n_in, n_out)
+    assert first.min() >= 0 and first.max() + 1 <= max(n_in - 1, 1)
+    rebuilt = np.zeros_like(mat)
+    for o in range(n_out):
+        for k in range(2):
+            rebuilt[min(first[o] + k, n_in - 1), o] += pair[o, k]
+    np.testing.assert_array_equal(rebuilt, want)
+
+
+@pytest.mark.parametrize("h,w,H,W", [(64, 112, 256, 448), (120, 216, 480, 864),
+                                     (8, 14, 64, 112), (17, 29, 67, 115),
+                                     (7, 7, 7, 7)],
+                         ids=["p3", "p3_480p", "8x", "unaligned", "identity"])
+@pytest.mark.parametrize("band", [16, 32, 64])
+def test_band_windows_hold_every_tap(h, w, H, W, band):
+    """Each band of output rows (tile of output columns) reads only input
+    rows (columns) inside its window, the window lies inside the input, and
+    no window is larger than the size the kernel is given."""
+    first = _pair_taps(w, W)[0]
+    cases = [(band_windows(h, H, band), _taps(h, H)[0], h),
+             (tile_windows(w, W, band), np.stack([first, first + 1], 1), w)]
+    for (lo, size), taps, n_in in cases:
+        assert lo.shape == (-(-taps.shape[0] // band),) and lo.dtype == np.int32
+        assert size <= n_in and (lo >= 0).all() and (lo + size <= n_in).all()
+        for k, start in enumerate(lo):
+            t = taps[k * band:(k + 1) * band]
+            assert (t >= start).all() and (t < start + size).all()
+    # at an s-fold upsample a band of n rows reads at most n / s + 2 input
+    # rows, and exactly that many at 4x (p3's interior bands)
+    for s in (4, 8):
+        if (H, W) == (s * h, s * w):
+            sizes = band_windows(h, H, band)[1], tile_windows(w, W, band)[1]
+            assert max(sizes) <= band // s + 2
+            assert s != 4 or sizes == (band // 4 + 2,) * 2
 
 
 def _logits(seed, B, M, h, w):
@@ -159,7 +196,9 @@ def _logits(seed, B, M, h, w):
 
 
 @pytest.mark.parametrize("B,M,h,w,H,W", [(2, 5, 16, 28, 64, 112),
-                                         (1, 3, 9, 13, 36, 52)])
+                                         (1, 3, 9, 13, 36, 52),
+                                         (1, 32, 16, 28, 64, 112),   # p4's M
+                                         (2, 5, 17, 29, 67, 115)])   # non-integer scale
 def test_resolve_plain_matches_jnp_and_pallas_interpret(B, M, h, w, H, W):
     lg, valid = _logits(B * 7 + h, B, M, h, w)
     got = resolve_upsample_plain(torch.from_numpy(lg), torch.from_numpy(valid),
