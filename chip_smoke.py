@@ -28,12 +28,26 @@ Phases, each fatal on failure:
      sequences, its detections fed as compact proposals into the same p3
      engine; counters set to 0 just before and read just after; then one
      detector image under torch.profiler;
-  5. run a small float32 configuration on the card and on the CPU (plain
+  5a. the legacy decoder (decoder_variant=legacy) at full p3 width through
+     InferenceEngine.run_sequence_chunked: full-grid uint8 proposals, B=2,
+     K=8, T=16; B1 and B2 exactly once per frame step; one profiled chunk;
+  5b. the Hungarian decode (p3, shared decoder) through run_sequence, B=2,
+     T=4: X one-hot, no proposal used twice, B1 and B2 once per step, the
+     host time of the scipy decode;
+  5c. the PGD solver (p3, unfused matcher) through run_sequence, B=2, T=4:
+     rows sum to 1, columns at most 1, no B1 launch (B2 resolves labels);
+  5d. the git-tracked checkpoint, read with the port's own msgpack reader,
+     on 8 synthetic videos, as saved (no kernel) and on the kernels (B1, B2
+     once per step): J&F > 0.85 and within 0.01 of the JAX package's; the
+     as-saved run against the CPU on two videos; with PIL installed, also
+     infer_torch.py on a DAVIS-layout tree;
+  6. run a small float32 configuration on the card and on the CPU (plain
      versions only) with the same weights and inputs, and compare; the
      same for a small detector (R-18, 64x128, 8 classes).
 
-Prints one JSON line {"kernels": [...]} with each kernel's launches, error,
-time, plain-version time and bound, then the nvidia-smi line, then
+Prints one JSON line {"kernels": [...]} with each kernel's launches (on the
+p3 stream; ``launches_by_path`` for every path that runs it), error, time,
+plain-version time and bound, then the nvidia-smi line, then
 {"ok": true, "device": {...}} as the last line. Imports nothing of JAX.
 """
 
@@ -52,6 +66,16 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory (NVIDIA data sheet)
 F32_FLOPS = 67e12               # H100 SXM float32 outside the tensor cores
 B1_KERNELS = ("matcher_pool_kernel", "matcher_cost_kernel", "matcher_sinkhorn_kernel")
 B2_KERNEL = "resolve_band_kernel"
+
+# Phase 5d: the git-tracked checkpoint on 8 synthetic videos, run as saved and
+# on the kernels. JAX_CKPT_JF is the JAX package's mean J&F (on the CPU) for
+# the same sequences and settings; tests/test_torch_port_cli.py recomputes it.
+CKPT = "artifacts/dmm128_fallback.msgpack"
+CKPT_SEEDS = tuple(range(7003, 7011))
+CKPT_RUNS = {"as_saved": {},
+             "kernels": {"matching.use_pallas": True, "model.mask_res": "stride4",
+                         "model.logits_res": "mask"}}
+JAX_CKPT_JF = {"as_saved": 0.9517428566667083, "kernels": 0.9380313546158888}
 
 
 def log(msg: str) -> None:
@@ -175,20 +199,23 @@ def bound_ms(byts, ops):
     return max(t_b, t_o) * 1e3, ("bytes" if t_b >= t_o else "operations")
 
 
-def check_matcher(name, shape, iters=30, timed=True, eps_init=None):
+def check_matcher(name, shape, iters=30, timed=True, eps_init=None,
+                  epsilon=0.05):
     import torch
     from dmm_net_tpu_torch.kernels.matcher import (fused_pool_cost_match,
                                                    pool_cost_match_plain)
     gen = torch.Generator(device="cuda").manual_seed(11)
     args = matcher_inputs(gen, *shape)
-    got = fused_pool_cost_match(*args, iters=iters, epsilon_init=eps_init)
-    want = pool_cost_match_plain(*args, iters=iters, epsilon_init=eps_init)
+    got = fused_pool_cost_match(*args, epsilon=epsilon, iters=iters,
+                                epsilon_init=eps_init)
+    want = pool_cost_match_plain(*args, epsilon=epsilon, iters=iters,
+                                 epsilon_init=eps_init)
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     rm, cm = args[5], args[6]
     pad_zero = bool((got[~rm] == 0).all() and (got.transpose(1, 2)[~cm] == 0).all())
     log(f"B1 fused_pool_cost_match {name} B,M,N,P,D,Pc={shape} "
-        f"eps_init={eps_init}: max|dX|={err:.3e} (limit 2e-4), "
+        f"epsilon={epsilon} eps_init={eps_init} iters={iters}: max|dX|={err:.3e} (limit 2e-4), "
         f"padded entries zero={pad_zero}")
     if not (err <= 2e-4 and pad_zero and torch.isfinite(got).all()):
         fail(f"B1 disagrees with its plain version at {name}")
@@ -575,6 +602,309 @@ def kernel_category(name: str) -> str:
     return "elementwise / casts / copies"
 
 
+# ---------------------------------------------------------------------------
+# phases 5a-5d: the legacy decoder, the Hungarian decode, PGD, the checkpoint
+# ---------------------------------------------------------------------------
+
+def full_grid_stream(seed, T, B, M, N, H, W, n_valid):
+    """uint8 frames, binary full-grid proposal boxes (T, B, N, H, W) as
+    uint8 (0/1 exact, taken unchanged by both packages), disk templates."""
+    rng = np.random.RandomState(seed)
+    frames = rng.randint(0, 256, (T, B, H, W, 3)).astype(np.uint8)
+    tmpl, valid = disk_templates(rng, B, M, H, W, n_valid)
+    y0 = rng.randint(0, H - 16, (T, B, N))
+    x0 = rng.randint(0, W - 16, (T, B, N))
+    y1 = y0 + 8 + rng.randint(0, H // 3, (T, B, N))
+    x1 = x0 + 8 + rng.randint(0, W // 3, (T, B, N))
+    rows = (np.arange(H) >= y0[..., None]) & (np.arange(H) < y1[..., None])
+    cols = (np.arange(W) >= x0[..., None]) & (np.arange(W) < x1[..., None])
+    props = (rows[..., :, None] & cols[..., None, :]).view(np.uint8)
+    pvalid = rng.rand(T, B, N) > 0.15
+    return frames, props, pvalid, tmpl, valid
+
+
+def check_assignments(what, X, valid, pvalid, row_tol, one_hot=False):
+    """X (T, B, M, N): valid rows sum to 1, padded rows (``valid`` (B, M))
+    and padded columns (``pvalid`` (T, B, N)) exactly 0; with ``one_hot``,
+    each valid row a single 1 and no proposal used twice in a frame. Returns
+    the largest row error and column sum."""
+    if not np.isfinite(X).all():
+        fail(f"{what}: X not finite")
+    row_err = float(np.abs(X.sum(-1)[:, valid] - 1.0).max())
+    col_max = float(X.sum(-2).max())
+    padded_cols = np.swapaxes(X, -1, -2)[~pvalid]
+    if row_err > row_tol or (X[:, ~valid] != 0).any() or (padded_cols != 0).any():
+        fail(f"{what}: valid rows sum to 1 +- {row_err:.2e} (limit {row_tol}) "
+             "or padded rows or columns not exactly 0")
+    if one_hot and not (set(np.unique(X).tolist()) <= {0.0, 1.0}
+                        and col_max <= 1.0):
+        fail(f"{what}: X is not one-hot, or a proposal is used twice")
+    return row_err, col_max
+
+
+def expect_launches(what, counts, want):
+    """The launch counts of B1 and B2 in a run must be exactly ``want``."""
+    got = {k: counts[k] for k in want}
+    if got != want:
+        fail(f"{what}: launches {got}, expected {want}")
+    return got
+
+
+def legacy_path():
+    """Phase 5a: the legacy decoder at full p3 width through
+    run_sequence_chunked (full-grid masks, B=2, K=8, T=16)."""
+    import torch
+    from dmm_net_tpu_torch.config import preset
+    from dmm_net_tpu_torch.infer.engine import InferenceEngine
+    from dmm_net_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    cfg = preset("p3_multi_object").override(**{"model.decoder_variant": "legacy"})
+    H, W = cfg.model.image_size
+    M, N = cfg.matching.max_templates, cfg.matching.max_proposals
+    B, K, T = 2, 8, 16
+    engine = InferenceEngine(cfg, seed=0)
+    frames, props, pvalid, tmpl, valid = full_grid_stream(7, T, B, M, N, H, W,
+                                                          [16, 6])
+    log(f"legacy path: {cfg.name} decoder_variant=legacy decoder_dim="
+        f"{cfg.model.decoder_dim} {cfg.model.backbone} {H}x{W} M={M} N={N} B={B} "
+        f"K={K} T={T}; full-grid uint8 proposals")
+    run = lambda t: engine.run_sequence_chunked(  # noqa: E731
+        frames[:t], props[:t], pvalid[:t], tmpl, valid, chunk=K)
+    run(K)                      # warm-up (cuDNN plans, allocator); not counted
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = run(T)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = expect_launches("legacy path", launch_counts(),
+                               {"fused_pool_cost_match": T,
+                                "fused_resolve_upsample": T})
+    labels, X = out["labels"], out["assignments"]
+    if labels.shape != (T, B, H, W) or labels.dtype != np.uint8:
+        fail(f"legacy labels {labels.shape} {labels.dtype}")
+    row_err, _ = check_assignments("legacy path", X, valid, pvalid, 1e-3)
+    log(f"legacy path: {T} frame steps x B={B} in {secs:.3f} s -> "
+        f"{T / secs:.2f} frame steps/s ({secs / T * 1e3:.2f} ms per step), "
+        f"launches {launches}, max|rowsum-1|={row_err:.2e}")
+    prof = profiled(f"profiled legacy chunk ({K} frame steps)", "step", K,
+                    lambda: run(K))
+    log(f"legacy path: {prof['busy_ms'] / K:.3f} ms of device time per frame "
+        f"step (profiled chunk)")
+    return launches, {"ms_per_step": secs / T * 1e3,
+                      "device_ms_per_step": prof["busy_ms"] / K,
+                      "idle": prof["idle"]}
+
+
+def run_sequence_phase(what, sets, b1_per_step):
+    """Phases 5b and 5c: p3_multi_object with ``sets`` through run_sequence
+    on full-grid items (shared decoder, B=2, T=4). B1 must launch
+    ``b1_per_step`` times and B2 once per frame step. Returns the engine,
+    its output, the template and proposal masks, the launches and the ms
+    per frame step."""
+    import torch
+    from dmm_net_tpu_torch.config import preset
+    from dmm_net_tpu_torch.infer.engine import InferenceEngine
+    from dmm_net_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    B, T = 2, 4
+    cfg = preset("p3_multi_object").override(**sets)
+    H, W = cfg.model.image_size
+    M, N = cfg.matching.max_templates, cfg.matching.max_proposals
+    frames, props, pvalid, tmpl, valid = full_grid_stream(8, T, B, M, N, H, W,
+                                                          [12, 5])
+    items = [{"frame": frames[t], "prop_masks": props[t], "prop_valid": pvalid[t]}
+             for t in range(T)]
+    engine = InferenceEngine(cfg, seed=0)
+    engine.run_sequence(iter(items[:1]), tmpl, valid, frames[0])  # warm-up
+    torch.cuda.synchronize()
+    engine.hungarian_host_s = 0.0
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = engine.run_sequence(iter(items), tmpl, valid, frames[0])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / T * 1e3
+    launches = expect_launches(what, launch_counts(),
+                               {"fused_pool_cost_match": b1_per_step * T,
+                                "fused_resolve_upsample": T})
+    if out["labels"].shape != (T, B, H, W):
+        fail(f"{what}: labels {out['labels'].shape}")
+    return engine, out, valid, pvalid, launches, ms
+
+
+def hungarian_path():
+    """Phase 5b: the Hungarian decode (soft X on the card, scipy on the host,
+    the one-hot X decoded on the card)."""
+    engine, out, valid, pvalid, launches, ms = run_sequence_phase(
+        "hungarian path", {"matching.decode": "hungarian"}, 1)
+    T = out["labels"].shape[0]
+    row_err, _ = check_assignments("hungarian path", out["assignments"], valid,
+                                   pvalid, 0.0, one_hot=True)
+    scipy_ms = engine.hungarian_host_s / T * 1e3
+    log(f"hungarian path: {T} frame steps x B=2 -> {ms:.2f} ms per frame step; "
+        f"launches {launches}; max|rowsum-1|={row_err:.2e}; scipy decode "
+        f"{scipy_ms:.3f} ms of host time per frame step")
+    return {"launches": launches, "ms_per_step": ms, "scipy_ms_per_step": scipy_ms}
+
+
+def pgd_path():
+    """Phase 5c: the PGD solver (unfused matcher, so B1 never launches)."""
+    _, out, valid, pvalid, launches, ms = run_sequence_phase(
+        "pgd path", {"matching.solver": "pgd", "matching.use_pallas": False}, 0)
+    T = out["labels"].shape[0]
+    row_err, col_max = check_assignments("pgd path", out["assignments"], valid,
+                                         pvalid, 1e-4)
+    if col_max > 1.0 + 1e-4:
+        fail(f"pgd path: a column sums to {col_max:.6f} (> 1 + 1e-4)")
+    log(f"pgd path: {T} frame steps x B=2 -> {ms:.2f} ms per frame step; "
+        f"launches {launches}; max|rowsum-1|={row_err:.2e}; max column sum "
+        f"{col_max:.6f}")
+    return {"launches": launches, "ms_per_step": ms}
+
+
+def ckpt_path():
+    """Phase 5d: the git-tracked checkpoint, read by the port's own msgpack
+    reader, on phase 5d's 8 synthetic videos (T=8 at the model size, B=8,
+    chunks of 8): (i) as saved, which runs no kernel; (ii) on the kernels
+    (B1 and B2 once per frame step). Each J&F must pass 0.85 and lie within
+    0.01 of the JAX package's; B1 and B2 are held against their plain
+    versions at run (ii)'s shapes; both runs on two videos on the CPU must
+    label the same pixels and give the same X."""
+    import torch
+    from dmm_net_tpu_torch.infer.engine import InferenceEngine
+    from dmm_net_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from dmm_net_tpu_torch.models.dmm import mask_hw
+    from dmm_net_tpu_torch.utils.checkpoint import load_msgpack_ckpt
+
+    cfg0, variables = load_msgpack_ckpt(str(ROOT / CKPT))
+    H, W = cfg0.model.image_size
+    M, N = cfg0.matching.max_templates, cfg0.matching.max_proposals
+    frames, items, tmpl, valid, gt = ckpt_inputs(M, N, H, W)
+    T = frames.shape[0]
+    log(f"checkpoint path: {CKPT} ({cfg0.model.backbone} {H}x{W} M={M} N={N} "
+        f"decoder_obj_fine_level={cfg0.model.decoder_obj_fine_level!r}); "
+        f"{len(CKPT_SEEDS)} synthetic videos x T={T}")
+    jf, launches, outs = {}, {}, {}
+    for run, sets in CKPT_RUNS.items():
+        engine = InferenceEngine(cfg0.override(**sets), variables=variables)
+        engine.run_stream_chunked(iter(items[:2]), tmpl, valid, frames[0], chunk=8)
+        torch.cuda.synchronize()                   # warm-up; not counted
+        reset_launch_counts()
+        outs[run] = engine.run_stream_chunked(iter(items), tmpl, valid,
+                                              frames[0], chunk=8)
+        n = 0 if run == "as_saved" else T
+        launches[run] = expect_launches(f"checkpoint {run}", launch_counts(),
+                                        {"fused_pool_cost_match": n,
+                                         "fused_resolve_upsample": n})
+        jf[run] = mean_jf(outs[run]["labels"], gt)
+    log("checkpoint J&F: " + ", ".join(
+        f"{run} {jf[run]:.4f} (JAX package {JAX_CKPT_JF[run]:.4f})" for run in jf))
+    for run in jf:
+        if not (jf[run] > 0.85 and abs(jf[run] - JAX_CKPT_JF[run]) <= 0.01):
+            fail(f"checkpoint {run}: J&F {jf[run]:.4f}, needs > 0.85 and within "
+                 f"0.01 of {JAX_CKPT_JF[run]:.4f}")
+    # B1 and B2 against their plain versions at the kernel run's shapes
+    kcfg = cfg0.override(**CKPT_RUNS["kernels"])
+    B, D = len(CKPT_SEEDS), kcfg.model.feature_dim
+    P = (H // 16) * (W // 16)                      # emb is c4, stride 16
+    Pc = int(np.prod(kcfg.cost.mask_size))
+    check_matcher("checkpoint", (B, M, N, P, D, Pc), timed=False,
+                  iters=kcfg.matching.sinkhorn_iters,
+                  epsilon=kcfg.matching.epsilon)
+    check_resolve("checkpoint", B, M, *mask_hw(kcfg), H, W)
+    # both runs on two of the videos on the CPU (plain versions throughout)
+    for run, sets in CKPT_RUNS.items():
+        cpu = InferenceEngine(cfg0.override(**sets), variables=variables,
+                              device="cpu").run_stream_chunked(
+            iter([{k: v[:2] for k, v in it.items()} for it in items]),
+            tmpl[:2], valid[:2], frames[0, :2], chunk=8)
+        card = outs[run]
+        mism = float((cpu["labels"] != card["labels"][:, :2]).mean())
+        xerr = float(np.abs(cpu["assignments"] - card["assignments"][:, :2]).max())
+        log(f"checkpoint {run}, card vs CPU on two videos: label mismatch "
+            f"{mism:.3e} (limit 1e-3), max|dX| {xerr:.3e} (limit 2e-3)")
+        if mism >= 1e-3 or xerr > 2e-3:
+            fail(f"card and CPU disagree on the checkpoint run {run}")
+    return jf, launches
+
+
+def cli_on_card():
+    """infer_torch.py on the card, on a 2-sequence DAVIS-layout tree written
+    to a temporary directory (needs PIL to write and read the tree)."""
+    import importlib.util
+    import tempfile
+    if importlib.util.find_spec("PIL") is None:
+        log("infer_torch.py on the card: skipped, PIL is not installed here")
+        return None
+    from PIL import Image
+    from dmm_net_tpu_torch.data.synthetic import synthetic_sequence
+    with tempfile.TemporaryDirectory() as tmp:
+        root, out = Path(tmp) / "DAVIS", Path(tmp) / "out"
+        names = ["seq0", "seq1"]
+        for name, seed in zip(names, CKPT_SEEDS):
+            s = synthetic_sequence(seed=seed, T=6, H=240, W=427, num_objects=2,
+                                   num_proposals=4)
+            for sub in ("JPEGImages", "Annotations"):
+                (root / sub / "480p" / name).mkdir(parents=True)
+            for t in range(6):
+                Image.fromarray((s["frames"][t] * 255).astype(np.uint8)).save(
+                    root / "JPEGImages" / "480p" / name / f"{t:05d}.jpg",
+                    quality=95)
+                lab = np.zeros((240, 427), np.uint8)
+                for m in range(2):
+                    lab[s["gt_masks"][t, m] > 0.5] = m + 1
+                Image.fromarray(lab).save(
+                    root / "Annotations" / "480p" / name / f"{t:05d}.png")
+        (root / "ImageSets" / "2017").mkdir(parents=True)
+        (root / "ImageSets" / "2017" / "val.txt").write_text("\n".join(names))
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, str(ROOT / "infer_torch.py"),
+                            "--ckpt", str(ROOT / CKPT), "--davis-root", str(root),
+                            "--out", str(out), "--device", "cuda"],
+                           capture_output=True, text=True, timeout=600)
+        if r.returncode != 0:
+            fail(f"infer_torch.py failed on the card: {r.stderr[-2000:]}")
+        summary = json.loads((out / "results.json").read_text())
+    log(f"infer_torch.py on the card: 2 sequences x 6 frames at 427x240 "
+        f"native, J&F {summary['J&F']:.4f}, {summary['fps']:.1f} frames/s "
+        f"inside the engine, {time.perf_counter() - t0:.1f} s for the command")
+    if not summary["J&F"] > 0.85:
+        fail(f"infer_torch.py on the card: J&F {summary['J&F']:.4f} <= 0.85")
+    return summary["J&F"]
+
+
+def ckpt_inputs(M, N, H, W, T=8, seeds=CKPT_SEEDS):
+    """Phase 5d's videos: one synthetic sequence per seed (2 objects, N
+    proposals), rendered at the model size and batched along B. Returns
+    frames (T, B, H, W, 3) float32, full-grid items, templates (B, M, H, W)
+    padded to M, valid (B, M) and ground-truth labels (B, T, H, W)."""
+    from dmm_net_tpu_torch.data.synthetic import synthetic_sequence
+    seqs = [synthetic_sequence(seed=s, T=T, H=H, W=W, num_objects=2,
+                               num_proposals=N) for s in seeds]
+    frames = np.stack([s["frames"] for s in seqs], 1)
+    tmpl = np.zeros((len(seqs), M, H, W), np.float32)
+    valid = np.zeros((len(seqs), M), bool)
+    gt = np.zeros((len(seqs), T, H, W), np.uint8)
+    for b, s in enumerate(seqs):
+        tmpl[b, :2] = s["tmpl_masks"]
+        valid[b, :2] = True
+        for m in range(2):
+            gt[b][s["gt_masks"][:, m] > 0.5] = m + 1
+    items = [{"frame": frames[t],
+              "prop_masks": np.stack([s["prop_masks"][t] for s in seqs]),
+              "prop_valid": np.stack([s["prop_valid"][t] for s in seqs])}
+             for t in range(T)]
+    return frames, items, tmpl, valid, gt
+
+
+def mean_jf(labels, gt):
+    """Mean J&F over the batch: labels (T, B, H, W), gt (B, T, H, W)."""
+    from dmm_net_tpu_torch.eval.davis_jf import evaluate_sequence
+    return float(np.mean([evaluate_sequence(gt[b], labels[:, b],
+                                            object_ids=[1, 2])["J&F"]
+                          for b in range(gt.shape[0])]))
+
+
 def small_reference():
     """The same small float32 configuration on the card (CUDA kernels,
     cuDNN) and on the CPU (plain versions), same weights and inputs."""
@@ -762,14 +1092,25 @@ def main() -> int:
 
     counts, fps, engine = main_path()
     det_counts, det_ms, det_prof = detector_path(engine)
+    legacy_launches, legacy = legacy_path()
+    hp = {"hungarian": hungarian_path(), "pgd": pgd_path()}
+    ckpt_jf, ckpt_launches = ckpt_path()
+    cli_jf = cli_on_card()
     small_reference()
     small_detector_reference()
+
+    def by_path(k):
+        return {"p3_stream": counts[k], "legacy_p3": legacy_launches[k],
+                "hungarian_p3": hp["hungarian"]["launches"][k],
+                "pgd_p3": hp["pgd"]["launches"][k],
+                "ckpt_kernels": ckpt_launches["kernels"][k]}
 
     kernels = [
         dict(name="fused_pool_cost_match", route="cuda",
              source="dmm_net_tpu_torch/csrc/matcher.cu",
              replaces="dmm_net_tpu/kernels/matcher.py:262",
              launches=counts["fused_pool_cost_match"], shape="p3 B=16",
+             launches_by_path=by_path("fused_pool_cost_match"),
              library_ms=None, batch4={k: b1_b4[k] for k in (
                  "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
                  "launch_ms", "sinkhorn_iter_ms")}, **b1),
@@ -777,6 +1118,7 @@ def main() -> int:
              source="dmm_net_tpu_torch/csrc/resolve.cu",
              replaces="dmm_net_tpu/kernels/resolve.py:117",
              launches=counts["fused_resolve_upsample"], shape="p3 B=16",
+             launches_by_path=by_path("fused_resolve_upsample"),
              library_ms=None, batch4={k: b2_b4[k] for k in (
                  "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
                  "valid_slots")}, **b2),
@@ -802,7 +1144,10 @@ def main() -> int:
     ]
     print(json.dumps({"kernels": kernels, "frames_per_s": fps,
                       "detector_ms_per_image": det_ms,
-                      "detector_profile": det_prof}), flush=True)
+                      "detector_profile": det_prof, "legacy_p3": legacy,
+                      "hungarian_p3": hp["hungarian"], "pgd_p3": hp["pgd"],
+                      "ckpt_jf": ckpt_jf, "jax_ckpt_jf": JAX_CKPT_JF,
+                      "cli_jf": cli_jf}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

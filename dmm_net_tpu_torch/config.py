@@ -18,8 +18,10 @@ class MatchingConfig:
     """Differentiable matching layer. Solves
         min <C, X>  s.t.  X >= 0, sum_j X[i,j] = 1, sum_i X[i,j] <= 1
     over padded (M_max, N_max) matrices with validity masks.
-    `solver`: "sinkhorn" or "pgd" (PGD is not ported yet).
-    `decode`: "soft", "argmax" or "hungarian" (Hungarian is not ported yet).
+    `solver`: "sinkhorn" or "pgd" (projected gradient with Dykstra
+    projections; unfused matcher only).
+    `decode`: "soft", "argmax" or "hungarian" (one-to-one, on the host;
+    ``InferenceEngine.run_sequence`` only).
     `use_pallas`: run pooling + cost + Sinkhorn as the fused kernel (the
     port's CUDA kernel, kernels/matcher.py)."""
 
@@ -81,7 +83,7 @@ class ModelConfig:
     logits_res: str = "full"
     decoder_fine_level: str = "c2"
     decoder_recurrent: bool = True  # ConvGRU state carried across frames
-    # "shared" = SharedFPNDecoder; "legacy" = RefinementDecoder (not ported)
+    # "shared" = SharedFPNDecoder; "legacy" = RefinementDecoder
     decoder_variant: str = "shared"
     decoder_obj_dim: int = 32      # per-object path width ("shared" variant)
     # per-object residual fuse conv: "conv3" | "conv1" | "none"

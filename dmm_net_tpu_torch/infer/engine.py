@@ -8,15 +8,19 @@ of the labels and assignments at the end of the sequence.
 Per frame: paste compact proposals onto the mask grid, run the DMM frame
 step (backbone, fused pooling/cost/Sinkhorn kernel, aggregation, decoder),
 and resolve overlaps into uint8 labels (fused upsample/argmax kernel for
-mask-grid logits).
+mask-grid logits). With ``matching.decode="hungarian"`` the step runs in two
+halves around a host-side Hungarian decode of X (``run_sequence`` only).
 
-Not ported yet: the Hungarian decode, ``run_sequence_chunked`` and the
-multi-device mesh (ROADMAP.md §A).
+Not ported: the multi-device mesh (ROADMAP.md §A, item 9).
 """
 
 from __future__ import annotations
 
 import math
+import os
+import struct
+import time
+import zlib
 from typing import Dict, Iterator, Optional
 
 import numpy as np
@@ -25,10 +29,29 @@ import torch
 from dmm_net_tpu_torch import resolve_device
 from dmm_net_tpu_torch.config import Config
 from dmm_net_tpu_torch.kernels.resolve import fused_resolve_upsample
-from dmm_net_tpu_torch.models.dmm import DMMNet, _mask_dtype, mask_hw
+from dmm_net_tpu_torch.models.dmm import (DMMNet, _mask_dtype, _to_mask_grid,
+                                          mask_hw)
 from dmm_net_tpu_torch.models.proposal.maskrcnn import paste_masks
+from dmm_net_tpu_torch.ops.matching import hard_assignment_hungarian
 from dmm_net_tpu_torch.ops.resize import resize
 from dmm_net_tpu_torch.weights import load_flax_variables
+
+
+def _davis_palette() -> np.ndarray:
+    """The 256-entry VOC/DAVIS colormap."""
+    palette = np.zeros((256, 3), np.uint8)
+    for i in range(256):
+        lab, r, g, b = i, 0, 0, 0
+        for j in range(8):
+            r |= ((lab >> 0) & 1) << (7 - j)
+            g |= ((lab >> 1) & 1) << (7 - j)
+            b |= ((lab >> 2) & 1) << (7 - j)
+            lab >>= 3
+        palette[i] = (r, g, b)
+    return palette
+
+
+DAVIS_PALETTE = _davis_palette()
 
 
 def _grid_like(m: torch.Tensor, ref: torch.Tensor) -> torch.Tensor:
@@ -79,6 +102,11 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
                                f"{item})")
 
 
+def _png_chunk(kind: bytes, data: bytes) -> bytes:
+    return (struct.pack(">I", len(data)) + kind + data
+            + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
+
+
 class InferenceEngine:
     """Streaming per-sequence inference on one device.
 
@@ -101,6 +129,8 @@ class InferenceEngine:
             load_flax_variables(self.model, variables)
         self.update_templates = update_templates
         self.bucket_templates = bucket_templates
+        # host seconds spent in the Hungarian decode (scipy), summed over steps
+        self.hungarian_host_s = 0.0
 
     # -- host <-> device ---------------------------------------------------
     def _t(self, x) -> torch.Tensor:
@@ -157,6 +187,11 @@ class InferenceEngine:
                     tmpl_valid, state):
         out, new_state = self.model(frame, prop_masks, prop_valid,
                                     tmpl_feats, tmpl_valid, state)
+        return self._finish_step(out, new_state, state, tmpl_valid)
+
+    def _finish_step(self, out, new_state, state, tmpl_valid):
+        """Labels from the step's logits; the carried templates stay the
+        frame-1 ones without template updates."""
         labels = self._resolve(out.logits, tmpl_valid)
         if not self.update_templates:
             new_state = new_state._replace(template_masks=state.template_masks)
@@ -167,6 +202,27 @@ class InferenceEngine:
         pm = self._paste(prop_boxes, prop_masks28, prop_valid)
         return self._frame_step(frame, pm, prop_valid, tmpl_feats, tmpl_valid,
                                 state)
+
+    def _hungarian_step(self, frame, prop_masks, prop_valid, tmpl_feats,
+                        tmpl_valid, state):
+        """One-to-one decode in two halves: soft X on the device, the
+        Hungarian decode on the host, then aggregation + refinement from the
+        one-hot X. The proposals go to the mask grid once, for both halves."""
+        cfg = self.cfg
+        prop_masks = _to_mask_grid(prop_masks.to(_mask_dtype(cfg)), mask_hw(cfg))
+        feats, X = self.model.match_assignment(frame, prop_masks, prop_valid,
+                                               tmpl_feats, tmpl_valid, state)
+        Xn = X.cpu().numpy()
+        rows, cols = tmpl_valid.cpu().numpy(), prop_valid.cpu().numpy()
+        t0 = time.perf_counter()
+        idx = hard_assignment_hungarian(Xn, rows, cols)
+        self.hungarian_host_s += time.perf_counter() - t0
+        Xh = np.zeros_like(Xn)
+        b_ix, m_ix = np.nonzero(idx >= 0)
+        Xh[b_ix, m_ix, idx[b_ix, m_ix]] = 1.0
+        out, new_state = self.model.decode_from_assignment(
+            feats, self._t(Xh), prop_masks, tmpl_valid, state)
+        return self._finish_step(out, new_state, state, tmpl_valid)
 
     def _run_chunk(self, step, per_frame, tmpl_feats, tmpl_valid, state, t0,
                    live_from, tmpl_masks0):
@@ -214,10 +270,9 @@ class InferenceEngine:
         """One frame step per item. Items are {"frame", "prop_masks",
         "prop_valid"} or the compact {"frame", "prop_boxes", "prop_masks28",
         "prop_valid"}. Returns labels (T, B, H, W) uint8 and assignments
-        (T, B, M, N) padded back to M_max."""
-        if self.cfg.matching.decode == "hungarian":
-            raise _not_ported("matching.decode='hungarian'",
-                              "next: PGD/Hungarian paths")
+        (T, B, M, N) padded back to M_max. With ``matching.decode=
+        "hungarian"`` every item must carry full-grid masks."""
+        hungarian = self.cfg.matching.decode == "hungarian"
         M_full = tmpl_valid.shape[1]
         tmpl_masks, tmpl_valid, _ = self._bucket_slice(
             np.asarray(tmpl_masks), np.asarray(tmpl_valid))
@@ -226,7 +281,14 @@ class InferenceEngine:
         state = self.model.init_state(tmpl_masks)
         labels_out, assign_out = [], []
         for item in frames_iter:
-            if "prop_boxes" in item:
+            if hungarian:
+                if "prop_boxes" in item:
+                    raise ValueError("hungarian decode supports full-mask "
+                                     "items only")
+                labels, X, state = self._hungarian_step(
+                    self._t(item["frame"]), self._t(item["prop_masks"]),
+                    self._t(item["prop_valid"]), tmpl_feats, tmpl_valid, state)
+            elif "prop_boxes" in item:
                 labels, X, state = self._frame_step_compact(
                     self._t(item["frame"]), self._t(item["prop_boxes"]),
                     self._t(item["prop_masks28"]), self._t(item["prop_valid"]),
@@ -249,6 +311,39 @@ class InferenceEngine:
                                                (0, 0)))
         return {"labels": labels, "assignments": assignments}
 
+    def _reject_hungarian(self, where: str) -> None:
+        """The Hungarian decode runs on the host between two device halves
+        (run_sequence only)."""
+        if self.cfg.matching.decode == "hungarian":
+            raise ValueError(
+                f"{where} cannot apply matching.decode='hungarian' (host-"
+                "side two-phase decode); use run_sequence / --per-frame")
+
+    @torch.no_grad()
+    def run_sequence_chunked(self, frames: np.ndarray, prop_masks: np.ndarray,
+                             prop_valid: np.ndarray, tmpl_masks: np.ndarray,
+                             tmpl_valid: np.ndarray, chunk: int = 8
+                             ) -> Dict[str, np.ndarray]:
+        """Whole-sequence inference, K frames per chunk (the last chunk may
+        be shorter), no object bucketing. frames (T, B, H, W, 3); prop_masks
+        (T, B, N, H, W) full-grid; prop_valid (T, B, N); tmpl_masks (B, M,
+        H, W); tmpl_valid (B, M). One chunk of inputs is on the device at a
+        time."""
+        self._reject_hungarian("run_sequence_chunked")
+        T = frames.shape[0]
+        tmpl_masks, tmpl_valid = self._t(tmpl_masks), self._t(tmpl_valid)
+        tmpl_feats = self._template_features(self._t(frames[0]), tmpl_masks)
+        state = self.model.init_state(tmpl_masks)
+        labels_out, assign_out = [], []
+        for t0 in range(0, T, chunk):
+            sl = slice(t0, min(t0 + chunk, T))
+            labels, X, state = self._chunk_step(
+                self._t(frames[sl]), self._t(prop_masks[sl]),
+                self._t(prop_valid[sl]), tmpl_feats, tmpl_valid, state)
+            labels_out.extend(labels.unbind(0))
+            assign_out.extend(X.unbind(0))
+        return self._gather(labels_out, assign_out, tmpl_valid.shape[1])
+
     @torch.no_grad()
     def run_stream_chunked(self, frames_iter: Iterator[Dict[str, np.ndarray]],
                            tmpl_masks: np.ndarray, tmpl_valid: np.ndarray,
@@ -260,10 +355,7 @@ class InferenceEngine:
         one chunk of proposals is host-resident). Mid-video objects: pass
         ``live_from`` (B, M) first-frame indices and ``tmpl_frames``
         (B, M, H, W, 3) per-object template frames."""
-        if self.cfg.matching.decode == "hungarian":
-            raise ValueError(
-                "run_stream_chunked cannot apply matching.decode='hungarian' "
-                "(host-side two-phase decode); use run_sequence")
+        self._reject_hungarian("run_stream_chunked")
         M_full = tmpl_valid.shape[1]
         tmpl_masks, tmpl_valid, (live_from, tmpl_frames) = \
             self._bucket_slice(np.asarray(tmpl_masks), np.asarray(tmpl_valid),
@@ -311,3 +403,21 @@ class InferenceEngine:
                 flush()
         flush()
         return self._gather(labels_out, assign_out, M_full)
+
+    @staticmethod
+    def write_png(labels: np.ndarray, path: str) -> None:
+        """Write an (H, W) label map as an 8-bit palette PNG with the DAVIS
+        palette (standard library only: zlib + struct)."""
+        d = os.path.dirname(path)
+        if d:
+            os.makedirs(d, exist_ok=True)
+        lab = np.ascontiguousarray(labels.astype(np.uint8))
+        h, w = lab.shape
+        rows = np.concatenate([np.zeros((h, 1), np.uint8), lab], 1)  # filter 0
+        with open(path, "wb") as f:
+            f.write(b"\x89PNG\r\n\x1a\n")
+            f.write(_png_chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 3,
+                                                    0, 0, 0)))
+            f.write(_png_chunk(b"PLTE", DAVIS_PALETTE.tobytes()))
+            f.write(_png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)))
+            f.write(_png_chunk(b"IEND", b""))

@@ -1,15 +1,19 @@
-"""Object-proportional refinement decoder (``SharedFPNDecoder``) with a
-ConvGRU recurrence at stride 32, NCHW inside.
+"""Mask-refinement decoders with a ConvGRU recurrence at stride 32, NCHW
+inside.
 
 Counterpart of the JAX package's models/decoder.py with every knob a
-checkpoint can carry. A shared FPN top-down path runs once per frame at
-batch B; a narrow per-object path runs at batch B*M on projected shared
-features plus each object's soft mask. Frame-shared inputs enter the
-per-object convs through ``SplitConcatConv``: the shared kernel slice runs
-at batch B and is broadcast-added, each partial conv rounded to the decoder
-dtype before the sum, as in the reference.
+checkpoint can carry.
 
-The legacy ``RefinementDecoder`` is not ported yet.
+``SharedFPNDecoder`` (the production variant): a shared FPN top-down path
+runs once per frame at batch B; a narrow per-object path runs at batch B*M
+on projected shared features plus each object's soft mask. Frame-shared
+inputs enter the per-object convs through ``SplitConcatConv``: the shared
+kernel slice runs at batch B and is broadcast-added, each partial conv
+rounded to the decoder dtype before the sum, as in the reference.
+
+``RefinementDecoder`` (``decoder_variant="legacy"``): the frame pyramid is
+broadcast to every object slot and the full-width conv stack runs at batch
+B*M, each level's skip concatenated with the object's mask.
 """
 
 from __future__ import annotations
@@ -61,6 +65,81 @@ class ConvGRUCell(nn.Module):
         cand = torch.tanh(_conv(torch.cat([x, r * h], 1), self.cand.weight, dt)
                           + self.cand.bias[:, None, None])
         return (1.0 - z) * h + z * cand
+
+
+class _UpBlock(nn.Module):
+    """Upsample to the skip's size, merge a lateral 1x1 of the skip, fuse
+    with a 3x3 conv."""
+
+    def __init__(self, cin_x: int, cin_skip: int, features: int, dtype):
+        super().__init__()
+        self.lateral = Conv(cin_skip, features, 1, dtype=dtype)
+        self.merge = Conv(cin_x, features, 3, dtype=dtype)
+        self.fuse = Conv(features, features, 3, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+        x = resize(x, skip.shape[-2:])
+        x = F.relu(self.merge(x) + self.lateral(skip))
+        return F.relu(self.fuse(x))
+
+
+class RefinementDecoder(nn.Module):
+    """forward(feats, agg_masks, state, out_hw) with
+      feats: NCHW pyramid {"c2".."c5"}
+      agg_masks: (B, M, h, w) soft masks from the matcher
+      state: (B, M, H/32, W/32, features) float32 ConvGRU state or None
+    returns (logits (B, M, *out_hw) float32, new_state)."""
+
+    def __init__(self, in_channels: Dict[str, int], features: int = 128,
+                 recurrent: bool = True, dtype=torch.float32,
+                 fine_level: str = "c2"):
+        super().__init__()
+        levels = ("c4", "c3", "c2")
+        self.levels = levels[:levels.index(fine_level) + 1]
+        self.dtype = dtype
+        self.recurrent = recurrent
+        self.f = features
+        self.head = Conv(in_channels["c5"] + 1, features, 3, dtype=dtype)
+        if recurrent:
+            self.gru = ConvGRUCell(features, features, dtype)
+        for level in self.levels:
+            setattr(self, f"up_{level}",
+                    _UpBlock(features, in_channels[level] + 1, features, dtype))
+        self.out = Conv(features, 1, 3, dtype=torch.float32)
+
+    def forward(self, feats: Dict[str, torch.Tensor], agg_masks: torch.Tensor,
+                state: Optional[torch.Tensor] = None,
+                out_hw: Optional[Tuple[int, int]] = None):
+        B, M, mh, mw = agg_masks.shape
+        c2 = feats["c2"]
+        H, W = out_hw or (c2.shape[-2] * 4, c2.shape[-1] * 4)
+        dt, f = self.dtype, self.f
+
+        def fold(x):            # (B, c, h, w) -> (B*M, c, h, w)
+            x = x.to(dt)
+            return x[:, None].expand((B, M) + x.shape[1:]).reshape(
+                (B * M,) + x.shape[1:])
+
+        def with_mask(x):       # the object's mask as one more channel
+            return torch.cat([x, resize(mask3, x.shape[-2:])], 1)
+
+        mask3 = agg_masks.reshape(B * M, 1, mh, mw).to(dt)
+        x = F.relu(self.head(with_mask(fold(feats["c5"]))))
+        h32 = tuple(x.shape[-2:])
+        if self.recurrent:
+            if state is None:
+                h_prev = torch.zeros((B * M, f) + h32, dtype=dt, device=x.device)
+            else:
+                h_prev = state.reshape((B * M,) + h32 + (f,)).permute(0, 3, 1, 2)
+            x = self.gru(h_prev, x)
+            new_state = x.permute(0, 2, 3, 1).reshape((B, M) + h32 + (f,)).float()
+        else:
+            new_state = torch.zeros((B, M) + h32 + (f,), dtype=torch.float32,
+                                    device=x.device)
+        for level in self.levels:
+            x = getattr(self, f"up_{level}")(x, with_mask(fold(feats[level])))
+        logits = resize(self.out(x)[:, 0], (H, W))
+        return logits.reshape(B, M, H, W), new_state
 
 
 class SplitConcatConv(nn.Module):

@@ -22,11 +22,12 @@ from dmm_net_tpu_torch import resolve_device
 from dmm_net_tpu_torch.config import Config
 from dmm_net_tpu_torch.data.pipeline import IMAGENET_MEAN, IMAGENET_STD
 from dmm_net_tpu_torch.kernels.matcher import fused_pool_cost_match
-from dmm_net_tpu_torch.models.decoder import SharedFPNDecoder
+from dmm_net_tpu_torch.models.decoder import RefinementDecoder, SharedFPNDecoder
 from dmm_net_tpu_torch.models.layers import Conv, init_random
 from dmm_net_tpu_torch.models.resnet import backbone_by_name, feature_dims
 from dmm_net_tpu_torch.ops.cost import cost_matrix
-from dmm_net_tpu_torch.ops.matching import hard_assignment, sinkhorn_match
+from dmm_net_tpu_torch.ops.matching import (hard_assignment, pgd_match,
+                                            sinkhorn_match)
 from dmm_net_tpu_torch.ops.resize import resize
 from dmm_net_tpu_torch.ops.roi_pool import mask_avg_pool
 
@@ -93,26 +94,27 @@ class DMMNet(nn.Module):
         super().__init__()
         cfg = config
         self.config = cfg
-        if cfg.model.decoder_variant != "shared":
-            raise NotImplementedError(
-                "decoder_variant='legacy' (RefinementDecoder) is not ported "
-                "yet (ROADMAP.md §A, next: RefinementDecoder)")
         dims = feature_dims(cfg.model.backbone)
         self.backbone = backbone_by_name(cfg.model.backbone,
                                          dtype=_dtype(cfg.model.backbone_dtype))
         self.feat_proj = Conv(dims["c4"], cfg.model.feature_dim, 1,
                               dtype=torch.float32)
         m = cfg.model
-        self.decoder = SharedFPNDecoder(
-            dims, features=m.decoder_dim, obj_features=m.decoder_obj_dim,
-            recurrent=m.decoder_recurrent, dtype=_dtype(m.decoder_dtype),
-            fine_level=m.decoder_fine_level, obj_fuse=m.decoder_obj_fuse,
-            obj_features_fine=m.decoder_obj_dim_fine,
-            features_fine=m.decoder_dim_fine,
-            obj_merge_fine_k=m.decoder_obj_merge_fine_k,
-            obj_fine_level=m.decoder_obj_fine_level,
-            detail_dim=m.decoder_detail_dim,
-            detail_basis_k=m.decoder_detail_basis_k)
+        if m.decoder_variant == "shared":
+            self.decoder = SharedFPNDecoder(
+                dims, features=m.decoder_dim, obj_features=m.decoder_obj_dim,
+                recurrent=m.decoder_recurrent, dtype=_dtype(m.decoder_dtype),
+                fine_level=m.decoder_fine_level, obj_fuse=m.decoder_obj_fuse,
+                obj_features_fine=m.decoder_obj_dim_fine,
+                features_fine=m.decoder_dim_fine,
+                obj_merge_fine_k=m.decoder_obj_merge_fine_k,
+                obj_fine_level=m.decoder_obj_fine_level,
+                detail_dim=m.decoder_detail_dim,
+                detail_basis_k=m.decoder_detail_basis_k)
+        else:
+            self.decoder = RefinementDecoder(
+                dims, features=m.decoder_dim, recurrent=m.decoder_recurrent,
+                dtype=_dtype(m.decoder_dtype), fine_level=m.decoder_fine_level)
         init_random(self, torch.Generator().manual_seed(seed))
         self.to(resolve_device(device))
         self.eval()
@@ -146,10 +148,6 @@ class DMMNet(nn.Module):
         """Cost + Sinkhorn on masks resized to the cost grid (unfused path).
         Returns X (B, M, N)."""
         cfg = self.config
-        if cfg.matching.solver == "pgd":
-            raise NotImplementedError(
-                "matching.solver='pgd' is not ported yet (ROADMAP.md §A, "
-                "next: PGD/Hungarian paths)")
         mh, mw = cfg.cost.mask_size
 
         def flat(m):
@@ -158,6 +156,10 @@ class DMMNet(nn.Module):
         C = cost_matrix(flat(tmpl_masks), flat(prop_masks), tmpl_feats,
                         prop_feats, row_mask=row_mask, col_mask=col_mask,
                         iou_weight=cfg.cost.iou_weight)
+        if cfg.matching.solver == "pgd":
+            return pgd_match(C, row_mask, col_mask, step=cfg.matching.pgd_step,
+                             pgd_iters=cfg.matching.pgd_iters,
+                             dykstra_iters=cfg.matching.dykstra_iters)
         return sinkhorn_match(C, row_mask, col_mask,
                               epsilon=cfg.matching.epsilon,
                               iters=cfg.matching.sinkhorn_iters,

@@ -227,3 +227,78 @@ def test_cuda_multilevel_roi_align_without_boxes_launches_nothing(cuda_kernels):
                                (7, 7))
     assert out.shape == (0, 16, 7, 7)
     assert _build.launch_counts()["roi_align"] == 0
+
+
+def _small_p3(**sets):
+    """p3_multi_object's path (fused matcher, stride-4 masks, mask-grid
+    logits) cut to R-18 at 64x96, float32, M=4, N=8."""
+    from dmm_net_tpu_torch.config import preset
+    return preset("p3_multi_object").override(**{
+        "model.backbone": "resnet18", "model.image_size": (64, 96),
+        "model.backbone_dtype": "float32", "model.decoder_dtype": "float32",
+        "model.mask_dtype": "float32", "model.decoder_dim": 16,
+        "matching.max_templates": 4, "matching.max_proposals": 8, **sets})
+
+
+def _full_grid_items(seed, T=3, B=2, N=8, M=4, H=64, W=96):
+    import numpy as np
+    rng = np.random.RandomState(seed)
+    frames = rng.randint(0, 256, (T, B, H, W, 3)).astype(np.uint8)
+    yy, xx = np.mgrid[:H, :W]
+    tmpl = np.zeros((B, M, H, W), np.float32)
+    for b in range(B):
+        for m in range(3):
+            cy, cx = rng.randint(10, H - 10), rng.randint(10, W - 10)
+            tmpl[b, m] = ((yy - cy) ** 2 + (xx - cx) ** 2) < rng.randint(60, 300)
+    valid = np.zeros((B, M), bool)
+    valid[:, :3] = True
+    items = []
+    for t in range(T):
+        cy = rng.randint(8, H - 8, (B, N, 1, 1))
+        cx = rng.randint(8, W - 8, (B, N, 1, 1))
+        r2 = rng.randint(40, 400, (B, N, 1, 1))
+        items.append({"frame": frames[t],
+                      "prop_masks": (((yy - cy) ** 2 + (xx - cx) ** 2) < r2)
+                      .astype(np.uint8),
+                      "prop_valid": rng.rand(B, N) > 0.2})
+    return frames, tmpl, valid, items
+
+
+@pytest.mark.cuda
+def test_cuda_legacy_frame_step_matches_cpu(cuda_kernels):
+    """The legacy decoder's frame step on the card (B1, cuDNN) against the
+    port on the CPU (plain versions), same seeded weights, float32."""
+    from dmm_net_tpu_torch.models.dmm import DMMNet
+    cfg = _small_p3(**{"model.decoder_variant": "legacy"})
+    frames, tmpl, valid, items = _full_grid_items(0)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        model = DMMNet(cfg, device=dev, seed=3)
+        t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        with torch.no_grad():
+            state = model.init_state(t(tmpl))
+            tf = model.pool_mask_features(model.extract_features(t(frames[0])),
+                                          t(tmpl))
+            out, st = model(t(items[1]["frame"]), t(items[1]["prop_masks"]),
+                            t(items[1]["prop_valid"]), tf, t(valid), state)
+        outs[dev] = (out.logits.cpu(), out.assignment.cpu(), st.decoder_state.cpu())
+    (lg, X, s), (lg_c, X_c, s_c) = outs["cuda"], outs["cpu"]
+    torch.testing.assert_close(X, X_c, atol=2e-4, rtol=0)
+    assert (lg - lg_c).abs().max() <= 1e-3 * lg_c.abs().max()
+    assert (s - s_c).abs().max() <= 1e-3 * s_c.abs().max()
+
+
+@pytest.mark.cuda
+def test_cuda_hungarian_step_launches_b1_and_b2_once(cuda_kernels):
+    import numpy as np
+    from dmm_net_tpu_torch.infer.engine import InferenceEngine
+    cfg = _small_p3(**{"matching.decode": "hungarian"})
+    frames, tmpl, valid, items = _full_grid_items(1)
+    engine = InferenceEngine(cfg, seed=0)
+    _build.reset_launch_counts()
+    out = engine.run_sequence(iter(items), tmpl, valid, frames[0])
+    counts = _build.launch_counts()
+    assert counts["fused_pool_cost_match"] == counts["fused_resolve_upsample"] == 3
+    X = out["assignments"]
+    assert set(np.unique(X).tolist()) <= {0.0, 1.0}
+    assert (X.sum(-1)[:, valid] == 1).all() and X.sum(-2).max() <= 1

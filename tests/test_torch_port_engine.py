@@ -27,6 +27,8 @@ _PKG = _ROOT / "dmm_net_tpu_torch"
 
 
 def _randomize(variables, seed):
+    """Seeded random values for every leaf of a flax tree; only the leaves'
+    shapes are read, so ``variables`` may come from ``jax.eval_shape``."""
     rng = np.random.RandomState(seed)
 
     def leaf(path, x):
@@ -38,8 +40,7 @@ def _randomize(variables, seed):
             return (rng.randn(*x.shape) * 0.1).astype(np.float32)
         return rng.uniform(0.5, 1.5, x.shape).astype(np.float32)
 
-    tree = jax.tree_util.tree_map(np.asarray, jax.device_get(variables))
-    return jax.tree_util.tree_map_with_path(leaf, tree)
+    return jax.tree_util.tree_map_with_path(leaf, variables)
 
 
 def _slice_cfg(dtype):
@@ -83,8 +84,8 @@ def _jax_variables(cfg, frames, tmpl, valid, items):
     B, M = valid.shape
     N = items[0]["prop_valid"].shape[1]
     state0 = jax_init_state(cfg, jnp.asarray(tmpl))
-    variables = model.init(
-        jax.random.PRNGKey(0), jnp.asarray(frames[0]),
+    variables = jax.eval_shape(   # shapes only: _randomize fills every leaf
+        model.init, jax.random.PRNGKey(0), jnp.asarray(frames[0]),
         jnp.zeros((B, N) + tmpl.shape[2:]), jnp.asarray(items[0]["prop_valid"]),
         jnp.zeros((B, M, cfg.model.feature_dim)), jnp.asarray(valid), state0)
     return model, _randomize(variables, 1)
@@ -149,15 +150,20 @@ def test_engine_defaults_to_cuda():
             InferenceEngine(cfg)
 
 
-def test_engine_rejects_unported_paths():
+def test_engine_rejects_unported_paths(tmp_path):
+    """What stays unported: the mesh, the YouTube-VOS CLI path and orbax
+    checkpoint directories; each refuses and names ROADMAP.md."""
+    from dmm_net_tpu_torch.utils.checkpoint import load_msgpack_ckpt
     cfg = config_from_dict(_slice_cfg("float32").to_dict())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         InferenceEngine(cfg, mesh=object(), device="cpu")
-    hcfg = cfg.override(**{"matching.decode": "hungarian"})
-    eng = InferenceEngine(hcfg, device="cpu")
-    frames, tmpl, valid, items = _stream(2, T=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        eng.run_sequence(iter(items), tmpl, valid, frames[0])
+    r = subprocess.run([sys.executable, str(_ROOT / "infer_torch.py"),
+                        "--dataset", "ytvos", "--device", "cpu"],
+                       cwd=str(tmp_path), capture_output=True, text=True,
+                       timeout=300)
+    assert r.returncode != 0 and "ROADMAP" in r.stderr, r.stderr[-2000:]
+    with pytest.raises(ValueError, match="ROADMAP"):
+        load_msgpack_ckpt(str(tmp_path))
 
 
 def test_port_imports_no_jax():
@@ -165,6 +171,7 @@ def test_port_imports_no_jax():
             "for m in pkgutil.walk_packages(dmm_net_tpu_torch.__path__, "
             "'dmm_net_tpu_torch.'):\n"
             "    importlib.import_module(m.name)\n"
+            "import infer_torch\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'dmm_net_tpu')]\n"
             "assert not bad, bad\n"
@@ -180,8 +187,9 @@ def test_port_sources_never_name_jax():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax)\b"
                          r"|\bdmm_net_tpu\.|from\s+dmm_net_tpu\s+import",
                          re.MULTILINE)
-    files = sorted(_PKG.rglob("*.py")) + [_ROOT / "chip_smoke.py"]
-    assert len(files) >= 16
+    files = sorted(_PKG.rglob("*.py")) + [_ROOT / "chip_smoke.py",
+                                          _ROOT / "infer_torch.py"]
+    assert len(files) >= 28
     for f in files:
         hit = pattern.search(f.read_text())
         assert hit is None, f"{f.relative_to(_ROOT)}: {hit.group(0)!r}"
