@@ -39,15 +39,35 @@ Phases, each fatal on failure:
   5d. the git-tracked checkpoint, read with the port's own msgpack reader,
      on 8 synthetic videos, as saved (no kernel) and on the kernels (B1, B2
      once per step): J&F > 0.85 and within 0.01 of the JAX package's; the
-     as-saved run against the CPU on two videos; with PIL installed, also
-     infer_torch.py on a DAVIS-layout tree;
-  6. run a small float32 configuration on the card and on the CPU (plain
+     as-saved run against the CPU on two videos; infer_torch.py on a
+     DAVIS-layout tree;
+  6. YouTube-VOS serving through its files and entry points, each tree
+     written to a temporary directory with PNG frames (no JPEG codec in
+     play): (6a) tools/extract_proposals_torch.py --dataset ytvos at full
+     width (R-50-FPN, 81 classes, 256x448, seeded random weights, score
+     threshold 0) on 2 videos x 15 frames at 360x640, objects first
+     annotated at frame 0 and at frame 5 or 10 with ids that are not
+     contiguous, meta.json listing every 5th frame: one JSON per frame,
+     each read back by YTVOSDataset, B4 twice per frame; (6b)
+     infer_torch.py --preset p4_ytvos_stream --dataset ytvos on that cache
+     (R-50 256x448, M=32, N=256, bf16, random weights): a complete
+     submission tree at native size, B1 and B2 once per frame step, the
+     frames/s inside the engine, one profiled chunk staged from the tree,
+     and the chunk's parts (reader, stager, engine) timed one after
+     another; (6c) the checkpoint through infer_torch.py --dataset ytvos on 4
+     synthetic videos (T=15, one object appearing mid-video, a stem-keyed
+     cache from the ground truth), as saved and on the kernels, scored by
+     eval/ytvos_local: G within 0.01 of the JAX package's (`JAX_YTVOS_G`,
+     recomputed by tests/test_torch_port_ytvos.py), and one video on the
+     card against the CPU;
+  7. run a small float32 configuration on the card and on the CPU (plain
      versions only) with the same weights and inputs, and compare; the
      same for a small detector (R-18, 64x128, 8 classes).
 
-Prints one JSON line {"kernels": [...]} with each kernel's launches (on the
-p3 stream; ``launches_by_path`` for every path that runs it), error, time,
-plain-version time and bound, then the nvidia-smi line, then
+PIL is required (phases 5d and 6 read and write image trees). Prints one
+JSON line {"kernels": [...]} with each kernel's launches (on the p3 stream
+and the detector; ``launches_by_path`` for every path that runs it), error,
+time, plain-version time and bound, then the nvidia-smi line, then
 {"ok": true, "device": {...}} as the last line. Imports nothing of JAX.
 """
 
@@ -77,6 +97,21 @@ CKPT_RUNS = {"as_saved": {},
                          "model.logits_res": "mask"}}
 JAX_CKPT_JF = {"as_saved": 0.9517428566667083, "kernels": 0.9380313546158888}
 
+# Phase 6: YouTube-VOS trees of synthetic videos. 6a/6b: 2 videos at 360x640,
+# the last object of each first annotated at frame 5 or 10, meta.json every
+# 5th frame. 6c: the checkpoint on 4 videos at 240x427 whose stems advance by
+# 5 (as the release's valid split names its frames), every frame listed, and
+# the last object appearing at frame 4-6. JAX_YTVOS_G is the JAX package's
+# overall G (infer.py --dataset ytvos and its scorer, on the CPU) on 6c's
+# tree; tests/test_torch_port_ytvos.py recomputes it.
+P4_VIDEOS = dict(seeds=(7201, 7202), ids=((1, 3), (2, 5)), late=(5, 10), T=15,
+                 hw=(360, 640), meta_every=5)
+YTVOS_VIDEOS = dict(seeds=(7301, 7302, 7303, 7304),
+                    ids=((1, 2), (1, 2, 3), (2, 4), (1, 3, 4)), late=(5, 4, 6, 5),
+                    T=15, hw=(240, 427), stem_step=5)
+YTVOS_CHUNK = 5
+JAX_YTVOS_G = {"as_saved": 0.9119563155066384, "kernels": 0.9120987107961782}
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -85,6 +120,15 @@ def log(msg: str) -> None:
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def require_pil(what: str):
+    """PIL's Image module; fatal when PIL is missing."""
+    try:
+        from PIL import Image
+    except ImportError:
+        fail(f"{what} needs PIL to read and write image trees")
+    return Image
 
 
 def smi_line() -> str:
@@ -400,10 +444,10 @@ def pyramid(gen, C=256, image=(256, 448)):
                         device="cuda", generator=gen) for l in (2, 3, 4, 5)]
 
 
-def check_multilevel(head, out_size, K=128, C=256, image=(256, 448)):
+def check_multilevel(head, out_size, K=128, C=256, image=(256, 448), timed=True):
     """B4 as the detector calls it: one launch per head, each box on its own
-    level of the 256x448 pyramid, K=128 boxes of every size (so every level
-    is taken), C=256."""
+    level of the 256x448 pyramid, K boxes of every size (so every level is
+    taken), C=256."""
     import torch
     from dmm_net_tpu_torch.kernels.roi_align import (fpn_levels,
                                                      multilevel_roi_align,
@@ -421,6 +465,8 @@ def check_multilevel(head, out_size, K=128, C=256, image=(256, 448)):
     name = f"{head} head -> {out_size[0]}x{out_size[1]}"
     err = roi_compare(f"B4 multilevel_roi_align {name} K={K} C={C} boxes per "
                       f"level p2..p5 {per_level}", got, want)
+    if not timed:
+        return err
     oh, ow = out_size
     byts = nbytes(*args[0], args[1]) + K * C * oh * ow * 4   # pyramid once + output
     ops = 10 * K * C * oh * ow * s * s                        # 4 taps, 3 lerps per sample
@@ -536,7 +582,9 @@ def profile_chunk(engine, items, tmpl, valid, frame0, K):
 
 def profiled(what, unit, n, fn, ranges=""):
     """Run ``fn`` once under torch.profiler: device busy share (kernel time
-    over wall time; one stream, so kernels do not overlap), device time by
+    over wall time; kernels on one stream do not overlap, so only a staged
+    stream, whose copies run on a stream of their own, can overlap them),
+    pinned and pageable host-to-device copy time, device time by
     kernel category and the kernels that take the most of it, per ``unit``
     (``n`` of them in the run). With ``ranges``, also the device time of
     the record_function ranges whose names start with it."""
@@ -577,8 +625,12 @@ def profiled(what, unit, n, fn, ranges=""):
     for name, (us, host) in sorted(per_range.items(), key=lambda kv: -kv[1][0]):
         log(f"  {us / 1e3 / n:8.4f} ms/{unit} {us / busy:6.3f}  range {name} "
             f"(host {host / 1e3 / n:.4f} ms, {host / wall_us:.3f} of wall)")
+    copy_ms = {kind: sum(us for name, us in per_name.items()
+                         if "Memcpy HtoD" in name and kind in name) / 1e3
+               for kind in ("Pinned", "Pageable")}
     return {"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
-            "idle": 1 - busy / wall_us,
+            "idle": 1 - busy / wall_us, "pinned_copy_ms": copy_ms["Pinned"],
+            "pageable_copy_ms": copy_ms["Pageable"],
             "ranges_ms": {k: {"device": d / 1e3, "host": h / 1e3}
                           for k, (d, h) in per_range.items()},
             "categories_ms": {k: v / 1e3 for k, v in per_cat.items()}}
@@ -830,13 +882,9 @@ def ckpt_path():
 
 def cli_on_card():
     """infer_torch.py on the card, on a 2-sequence DAVIS-layout tree written
-    to a temporary directory (needs PIL to write and read the tree)."""
-    import importlib.util
+    to a temporary directory (PIL writes and reads the tree)."""
     import tempfile
-    if importlib.util.find_spec("PIL") is None:
-        log("infer_torch.py on the card: skipped, PIL is not installed here")
-        return None
-    from PIL import Image
+    Image = require_pil("phase 5d")
     from dmm_net_tpu_torch.data.synthetic import synthetic_sequence
     with tempfile.TemporaryDirectory() as tmp:
         root, out = Path(tmp) / "DAVIS", Path(tmp) / "out"
@@ -1036,6 +1084,320 @@ def small_detector_reference():
         fail("card and CPU disagree on the small detector")
 
 
+# ---------------------------------------------------------------------------
+# phase 6: YouTube-VOS serving, detector -> proposal cache -> stream -> tree
+# ---------------------------------------------------------------------------
+
+def write_ytvos_tree(root, seeds, ids, late, T, hw, stem_step=1, meta_every=1,
+                     cache=None, num_proposals=8):
+    """A YouTube-VOS-layout split ``<root>/valid`` of synthetic videos
+    (data/synthetic.py), one per seed, with PNG frames at ``hw``. Video v
+    holds the objects ``ids[v]``; its last object appears at frame
+    ``late[v]`` (before it, painted out of the frames, the ground truth and
+    the proposals), the others at frame 0. Annotations hold each object's
+    first frame only (palette PNGs); meta.json lists each object's frames
+    from its first, every ``meta_every``-th; stems advance by
+    ``stem_step``. With ``cache``, a stem-keyed proposal cache of the
+    synthetic proposals (RLE json, scores falling with the index).
+
+    Returns the full ground truth {vid: {stem: (H, W) uint8}}, which the
+    tree does not hold, and each object's first stem {vid: {oid: stem}}."""
+    Image = require_pil("phase 6")
+    from dmm_net_tpu_torch.data.synthetic import synthetic_sequence
+    from dmm_net_tpu_torch.infer.engine import InferenceEngine
+    from dmm_net_tpu_torch.ops import rle
+    H, W = hw
+    split = Path(root) / "valid"
+    meta, gts, firsts = {}, {}, {}
+    for v, (seed, oids, t_late) in enumerate(zip(seeds, ids, late)):
+        vid = f"vid{v}"
+        s = synthetic_sequence(seed=seed, T=T, H=H, W=W, num_objects=len(oids),
+                               num_proposals=num_proposals)
+        stems = [f"{t * stem_step:05d}" for t in range(T)]
+        appear = [0] * (len(oids) - 1) + [t_late]
+        frames = (np.clip(s["frames"], 0, 1) * 255).astype(np.uint8)
+        lab = np.zeros((T, H, W), np.uint8)
+        for m, oid in enumerate(oids):          # later objects are drawn on top
+            lab[appear[m]:][s["gt_masks"][appear[m]:, m] > 0.5] = oid
+        for t in range(t_late):                 # the last object is not there yet
+            hide = s["gt_masks"][t, -1] > 0.5
+            frames[t][hide] = frames[t][(lab[t] == 0) & ~hide].mean(0)
+            lab[t][hide] = 0
+        (split / "JPEGImages" / vid).mkdir(parents=True)
+        for t, stem in enumerate(stems):
+            Image.fromarray(frames[t]).save(split / "JPEGImages" / vid / f"{stem}.png")
+        for a in sorted(set(appear)):
+            first = [oid for oid, t in zip(oids, appear) if t == a]
+            InferenceEngine.write_png(np.where(np.isin(lab[a], first), lab[a], 0),
+                                      str(split / "Annotations" / vid / f"{stems[a]}.png"))
+        meta[vid] = {"objects": {str(oid): {"frames": [
+            stems[t] for t in range(a, T, meta_every)]} for oid, a in zip(oids, appear)}}
+        gts[vid] = dict(zip(stems, lab))
+        firsts[vid] = {oid: stems[a] for oid, a in zip(oids, appear)}
+        if cache is None:
+            continue
+        (Path(cache) / vid).mkdir(parents=True)
+        for t, stem in enumerate(stems):
+            props = []
+            for n in np.flatnonzero(s["prop_valid"][t]):
+                if t < t_late and n == s["gt_assignment"][t, -1]:
+                    continue                    # the hidden object's proposal
+                enc = rle.encode(s["prop_masks"][t, n] > 0.5)
+                props.append({"score": float(1 - n / num_proposals),
+                              "rle": {"size": [int(x) for x in enc["size"]],
+                                      "counts": enc["counts"].decode("latin1")}})
+            (Path(cache) / vid / f"{stem}.json").write_text(json.dumps(props))
+    (split / "meta.json").write_text(json.dumps({"videos": meta}))
+    return gts, firsts
+
+
+def ytvos_g(sub_dir, gts, firsts) -> float:
+    """Overall G (eval/ytvos_local) of a submission tree against the full
+    ground truth, over the stems both hold."""
+    Image = require_pil("phase 6")
+    from dmm_net_tpu_torch.eval.ytvos_local import evaluate_video, summarize
+    per_video = {}
+    for vid, gt in gts.items():
+        pred = {}
+        for p in sorted((Path(sub_dir) / "Annotations" / vid).glob("*.png")):
+            with Image.open(p) as im:
+                pred[p.stem] = np.asarray(im)
+        per_video[vid] = evaluate_video(gt, pred, firsts[vid])
+    return summarize(per_video)["overall"]["G"]
+
+
+def ckpt_sets(run):
+    """CKPT_RUNS[run] as infer_torch.py --set arguments."""
+    return [f"{k}={str(v).lower() if isinstance(v, bool) else v}"
+            for k, v in CKPT_RUNS[run].items()]
+
+
+def load_tool(name):
+    """A script under tools/ as a module (its main takes argv)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(name, ROOT / "tools" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def extract_path(tmp):
+    """Phase 6a: tools/extract_proposals_torch.py --dataset ytvos at full
+    width on P4_VIDEOS; every frame gets a JSON that YTVOSDataset reads
+    back, and B4 launches twice per frame."""
+    import torch
+    from dmm_net_tpu_torch.data.ytvos import YTVOSDataset
+    from dmm_net_tpu_torch.kernels import launch_counts, reset_launch_counts
+
+    root, cache = tmp / "ytvos_p4", tmp / "props_p4"
+    gts, firsts = write_ytvos_tree(root, **P4_VIDEOS)
+    n = len(P4_VIDEOS["seeds"]) * P4_VIDEOS["T"]
+    H0, W0 = P4_VIDEOS["hw"]
+    log(f"extract path: tools/extract_proposals_torch.py --dataset ytvos, Mask R-CNN "
+        f"R-50-FPN 81 classes 256x448 (defaults: max 64 detections), score "
+        f"threshold 0, seeded random weights; {n} PNG frames at {H0}x{W0}")
+    extract = load_tool("extract_proposals_torch")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    extract.main(["--dataset", "ytvos", "--root", str(root), "--out", str(cache),
+                  "--score-thresh", "0"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+    if counts["roi_align"] != 2 * n:
+        fail(f"extract path: roi_align launched {counts['roi_align']} times for "
+             f"{n} frames, expected {2 * n} (one per head)")
+    ds = YTVOSDataset(str(root), proposal_dir=str(cache), max_objects=32,
+                      max_proposals=256)
+    per_frame = []
+    for vid in ds.videos:
+        for fp in ds.frame_paths(vid):
+            stem = Path(fp).stem
+            pf = cache / vid / f"{stem}.json"
+            if not pf.is_file():
+                fail(f"extract path: no proposals written for {vid}/{stem}")
+            props = json.loads(pf.read_text())
+            _, valid = ds.load_proposals(vid, stem)
+            if not props or int(valid.sum()) != min(len(props), 256):
+                fail(f"extract path: {vid}/{stem}: {len(props)} proposals "
+                     f"written, {int(valid.sum())} read back")
+            per_frame.append(len(props))
+    log(f"extract path: {n} frames in {secs:.2f} s ({secs / n * 1e3:.1f} ms per "
+        f"frame: decode, detector, paste, RLE, json); proposals per frame "
+        f"{min(per_frame)}-{max(per_frame)}; launches {counts}")
+    return root, cache, counts, secs / n * 1e3
+
+
+def ytvos_p4_path(tmp, root, cache):
+    """Phase 6b: infer_torch.py --preset p4_ytvos_stream --dataset ytvos on
+    phase 6a's cache (random weights): a complete submission tree at native
+    size, B1 and B2 once per frame step; B1 and B2 against their plain
+    versions at the stream's shapes; one chunk profiled, then its parts
+    timed one after another."""
+    import itertools
+    import torch
+    import infer_torch
+    from dmm_net_tpu_torch.config import preset
+    from dmm_net_tpu_torch.data.pipeline import RingStager
+    from dmm_net_tpu_torch.data.ytvos import YTVOSDataset
+    from dmm_net_tpu_torch.infer.batching import batch_sequence_streams
+    from dmm_net_tpu_torch.infer.engine import InferenceEngine, bucket_objects
+    from dmm_net_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from dmm_net_tpu_torch.models.dmm import mask_hw
+    Image = require_pil("phase 6")
+
+    cfg = preset("p4_ytvos_stream")
+    H, W = cfg.model.image_size
+    M, N = cfg.matching.max_templates, cfg.matching.max_proposals
+    steps = len(P4_VIDEOS["seeds"]) * P4_VIDEOS["T"]
+    out = tmp / "sub_p4"
+    log(f"ytvos p4 path: infer_torch.py --preset {cfg.name} --dataset ytvos "
+        f"({cfg.model.backbone} {H}x{W} M={M} N={N} decoder={cfg.model.decoder_dtype} "
+        f"masks={cfg.model.mask_dtype} mask_res={cfg.model.mask_res} "
+        f"logits_res={cfg.model.logits_res}), random weights, {steps} frame steps")
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    summary = infer_torch.main(["--preset", cfg.name, "--dataset", "ytvos",
+                                "--ytvos-root", str(root), "--proposal-dir", str(cache),
+                                "--out", str(out), "--device", "cuda"])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = expect_launches("ytvos p4 path", launch_counts(),
+                               {"fused_pool_cost_match": steps,
+                                "fused_resolve_upsample": steps})
+    meta = json.loads((root / "valid" / "meta.json").read_text())["videos"]
+    H0, W0 = P4_VIDEOS["hw"]
+    n_png, labelled = 0, []
+    for vid, ids in zip(sorted(meta), P4_VIDEOS["ids"]):
+        stems = sorted({s for od in meta[vid]["objects"].values() for s in od["frames"]})
+        got = sorted(p.stem for p in (out / "Annotations" / vid).glob("*.png"))
+        if got != stems:
+            fail(f"ytvos p4 path: {vid} submission stems {got}, meta.json lists {stems}")
+        for stem in stems:
+            with Image.open(out / "Annotations" / vid / f"{stem}.png") as im:
+                lab = np.asarray(im)
+            if lab.shape != (H0, W0) or not set(np.unique(lab).tolist()) <= {0, *ids}:
+                fail(f"ytvos p4 path: {vid}/{stem}.png is {lab.shape} with values "
+                     f"{np.unique(lab).tolist()}, expected {(H0, W0)} in {{0, {ids}}}")
+            labelled.append(float((lab > 0).mean()))
+            n_png += 1
+    log(f"ytvos p4 path: {summary['frames']} frames at {summary['fps']:.2f} frames/s "
+        f"inside the engine (staging included); {secs:.2f} s for the command; "
+        f"{n_png} submission PNGs at {H0}x{W0}; labelled pixels {np.mean(labelled):.4f}; "
+        f"launches {launches}")
+    # B1 and B2 at this stream's shapes: B=1, M bucketed to the 2 objects
+    m_b = bucket_objects(2, M)
+    check_matcher("p4 stream", (1, m_b, N, (H // 16) * (W // 16),
+                                cfg.model.feature_dim, int(np.prod(cfg.cost.mask_size))),
+                  timed=False, iters=cfg.matching.sinkhorn_iters,
+                  epsilon=cfg.matching.epsilon)
+    check_resolve("p4 stream", 1, m_b, *mask_hw(cfg), H, W)
+    # one chunk of video 0, decoded and staged from the tree, under the profiler
+    ds = YTVOSDataset(str(root), image_size=(H, W), proposal_dir=str(cache),
+                      max_objects=M, max_proposals=N)
+    engine = InferenceEngine(cfg, seed=0)
+    K = 8
+
+    def chunk():
+        sd = batch_sequence_streams([ds.sequence_stream(ds.videos[0])])
+        items = itertools.islice(sd["frames"], K)
+        return lambda: engine.run_stream_chunked(
+            iter(RingStager(items, depth=2)), sd["tmpl_masks"], sd["tmpl_valid"],
+            sd["first_frame"], chunk=K, live_from=sd["live_from"],
+            tmpl_frames=sd["tmpl_frames"])
+
+    chunk()()                   # warm-up (cuDNN plans, allocator, pinned blocks)
+    prof = profiled(f"profiled p4 chunk ({K} frame steps, decoded and staged from "
+                    "the tree)", "step", K, chunk())
+    copies = prof["categories_ms"].get("host/device copies", 0.0)
+    compute_busy = (prof["busy_ms"] - copies) / prof["wall_ms"]
+    log(f"ytvos p4 path: device busy {compute_busy:.3f} without the copies, which "
+        f"run on the stager's own stream ({copies / K:.3f} ms per step; "
+        f"pinned {prof['pinned_copy_ms'] / K:.3f}, pageable "
+        f"{prof['pageable_copy_ms'] / K:.3f})")
+    # the same chunk's parts one after another: the reader alone (decode,
+    # cached masks decoded and resized), the stager on the read items, the
+    # engine on the staged items
+    sd = batch_sequence_streams([ds.sequence_stream(ds.videos[0])])
+    t0 = time.perf_counter()
+    items = list(itertools.islice(sd["frames"], K))
+    t1 = time.perf_counter()
+    staged = list(RingStager(iter(items), depth=2))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    engine.run_stream_chunked(iter(staged), sd["tmpl_masks"], sd["tmpl_valid"],
+                              sd["first_frame"], chunk=K, live_from=sd["live_from"],
+                              tmpl_frames=sd["tmpl_frames"])
+    torch.cuda.synchronize()
+    n = len(items)
+    parts = {"reader_ms": (t1 - t0) / n * 1e3, "stager_ms": (t2 - t1) / n * 1e3,
+             "engine_ms": (time.perf_counter() - t2) / n * 1e3}
+    log("ytvos p4 path, per frame step with the parts run one after another: "
+        + ", ".join(f"{k[:-3]} {v:.2f} ms" for k, v in parts.items())
+        + f" ({int(sum(it['prop_valid'].sum() for it in items)) / n:.1f} cached "
+        f"masks and {nbytes(torch.from_numpy(items[0]['prop_masks'])) / 1e6:.1f} MB "
+        "of full-grid masks per item)")
+    return launches, {"fps": summary["fps"], "frames": summary["frames"],
+                      "command_s": secs, "busy_without_copies": compute_busy,
+                      **parts,
+                      **{k: prof[k] for k in ("wall_ms", "busy_ms", "idle",
+                                              "pinned_copy_ms", "pageable_copy_ms")}}
+
+
+def ytvos_ckpt_path(tmp):
+    """Phase 6c: the checkpoint through infer_torch.py --dataset ytvos on
+    YTVOS_VIDEOS, as saved and on the kernels: overall G within 0.01 of the
+    JAX package's, B1 and B2 once per frame step on the kernels (none as
+    saved); one video on the card against the CPU."""
+    import infer_torch
+    from dmm_net_tpu_torch.kernels import launch_counts, reset_launch_counts
+    Image = require_pil("phase 6")
+
+    root, cache = tmp / "ytvos_ckpt", tmp / "props_ckpt"
+    gts, firsts = write_ytvos_tree(root, cache=cache, **YTVOS_VIDEOS)
+    steps = len(YTVOS_VIDEOS["seeds"]) * YTVOS_VIDEOS["T"]
+    H0, W0 = YTVOS_VIDEOS["hw"]
+    log(f"ytvos checkpoint path: {CKPT} on {len(gts)} synthetic videos x "
+        f"{YTVOS_VIDEOS['T']} frames at {H0}x{W0}, one object each appearing "
+        f"mid-video, a cache from the ground truth; chunks of {YTVOS_CHUNK}")
+
+    def run(name, device, extra=()):
+        return infer_torch.main(["--ckpt", str(ROOT / CKPT), "--dataset", "ytvos",
+                                 "--ytvos-root", str(root), "--proposal-dir", str(cache),
+                                 "--out", str(tmp / name), "--device", device,
+                                 "--chunk", str(YTVOS_CHUNK), *extra,
+                                 "--set", *ckpt_sets(name.split("-")[0])])
+
+    g, launches = {}, {}
+    for r in CKPT_RUNS:
+        reset_launch_counts()
+        run(r, "cuda")
+        n = 0 if r == "as_saved" else steps
+        launches[r] = expect_launches(f"ytvos checkpoint {r}", launch_counts(),
+                                      {"fused_pool_cost_match": n,
+                                       "fused_resolve_upsample": n})
+        g[r] = ytvos_g(tmp / r, gts, firsts)
+    log("ytvos checkpoint G: " + ", ".join(
+        f"{r} {g[r]:.4f} (JAX package {JAX_YTVOS_G[r]:.4f})" for r in g))
+    for r in g:
+        if not abs(g[r] - JAX_YTVOS_G[r]) <= 0.01:
+            fail(f"ytvos checkpoint {r}: G {g[r]:.4f}, needs to be within 0.01 "
+                 f"of {JAX_YTVOS_G[r]:.4f}")
+    vid = sorted(gts)[0]
+    for r in CKPT_RUNS:
+        run(f"{r}-cpu", "cpu", ("--sequences", vid))
+        mism = []
+        for p in sorted((tmp / r / "Annotations" / vid).glob("*.png")):
+            with Image.open(p) as a, Image.open(tmp / f"{r}-cpu" / "Annotations"
+                                                / vid / p.name) as b:
+                mism.append(float((np.asarray(a) != np.asarray(b)).mean()))
+        log(f"ytvos checkpoint {r}, card vs CPU on {vid}: label mismatch "
+            f"{np.mean(mism):.3e} (limit 1e-3) over {len(mism)} PNGs")
+        if len(mism) != YTVOS_VIDEOS["T"] or np.mean(mism) >= 1e-3:
+            fail(f"card and CPU disagree on the YouTube-VOS checkpoint run {r}")
+    return g, launches
+
+
 def main() -> int:
     if not (ROOT / "dmm_net_tpu_torch" / "csrc").is_dir():
         fail("dmm_net_tpu_torch/ not found next to chip_smoke.py; run it from "
@@ -1096,6 +1458,14 @@ def main() -> int:
     hp = {"hungarian": hungarian_path(), "pgd": pgd_path()}
     ckpt_jf, ckpt_launches = ckpt_path()
     cli_jf = cli_on_card()
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        yt_root, yt_cache, ex_counts, ex_ms = extract_path(tmp)
+        p4_launches, p4 = ytvos_p4_path(tmp, yt_root, yt_cache)
+        yt_g, yt_launches = ytvos_ckpt_path(tmp)
+    b4_extract = check_multilevel("mask (extract_proposals, 64 detections)",
+                                  (14, 14), K=64, timed=False)
     small_reference()
     small_detector_reference()
 
@@ -1103,7 +1473,9 @@ def main() -> int:
         return {"p3_stream": counts[k], "legacy_p3": legacy_launches[k],
                 "hungarian_p3": hp["hungarian"]["launches"][k],
                 "pgd_p3": hp["pgd"]["launches"][k],
-                "ckpt_kernels": ckpt_launches["kernels"][k]}
+                "ckpt_kernels": ckpt_launches["kernels"][k],
+                "ytvos_p4": p4_launches[k],
+                "ytvos_ckpt_kernels": yt_launches["kernels"][k]}
 
     kernels = [
         dict(name="fused_pool_cost_match", route="cuda",
@@ -1133,8 +1505,11 @@ def main() -> int:
              launches=det_counts["roi_align"],
              shape="per detector image: box head K=128 -> 7x7 + mask head "
                    "K=128 -> 14x14, C=256, 256x448 pyramid",
-             path="detector (phase 4b); 2 launches per detector image",
-             max_abs_err=max(b4["box"]["max_abs_err"], b4["mask"]["max_abs_err"]),
+             path="detector (phases 4b and 6a); 2 launches per detector image",
+             launches_by_path={"detector_4b": det_counts["roi_align"],
+                               "extract_proposals": ex_counts["roi_align"]},
+             max_abs_err=max(b4["box"]["max_abs_err"], b4["mask"]["max_abs_err"],
+                             b4_extract),
              single_level_max_abs_err=b4_single,
              image_ms=b4_img["ms"], image_bound_ms=b4_img["bound_ms"],
              heads=b4, library_ms=None,
@@ -1147,7 +1522,9 @@ def main() -> int:
                       "detector_profile": det_prof, "legacy_p3": legacy,
                       "hungarian_p3": hp["hungarian"], "pgd_p3": hp["pgd"],
                       "ckpt_jf": ckpt_jf, "jax_ckpt_jf": JAX_CKPT_JF,
-                      "cli_jf": cli_jf}), flush=True)
+                      "cli_jf": cli_jf, "extract_ms_per_frame": ex_ms,
+                      "ytvos_p4": p4, "ytvos_g": yt_g,
+                      "jax_ytvos_g": JAX_YTVOS_G}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

@@ -380,7 +380,12 @@ class InferenceEngine:
                 return
 
             def stack(key):
-                return self._t(np.stack([b[key] for b in buf]))
+                # items staged on the device (data/pipeline.RingStager) stay
+                # there; numpy items are stacked on the host and copied once
+                vals = [b[key] for b in buf]
+                if isinstance(vals[0], torch.Tensor):
+                    return self._t(torch.stack(vals))
+                return self._t(np.stack(vals))
 
             if "prop_boxes" in buf[0]:
                 labels, X, state = self._chunk_step_compact(

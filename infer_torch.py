@@ -1,23 +1,30 @@
 #!/usr/bin/env python3
 """Inference + evaluation CLI of the PyTorch/CUDA port (dmm_net_tpu_torch):
-the counterpart of infer.py for DAVIS.
+the counterpart of infer.py.
 
 Usage:
   python infer_torch.py --ckpt artifacts/dmm128_fallback.msgpack \
                         --davis-root /data/DAVIS [--out results/x]
-  python infer_torch.py --preset p3_multi_object --davis-root ... --device cpu
+  python infer_torch.py --preset p4_ytvos_stream --dataset ytvos \
+                        --ytvos-root /data/YouTubeVOS --proposal-dir /data/props \
+                        [--out results/p4]
+  python infer_torch.py ... --device cpu
 
 A msgpack checkpoint {"config", "variables"} (the JAX package's format)
 carries its own model config, which becomes the base config; --set
 overrides apply on top. Without --ckpt the weights are random (seed 0).
 The default dispatch runs K frames per chunk (--chunk); --per-frame runs
-one frame step at a time and is forced for matching.decode=hungarian.
+one frame step at a time and is forced for matching.decode=hungarian. Every
+stream is staged ahead of the engine by data/pipeline.RingStager (decode on
+a producer thread, the next frames already on the device).
 
-Writes palette PNGs per sequence and results.json with J, F and J&F per
+DAVIS: palette PNGs per sequence and results.json with J, F and J&F per
 sequence and overall, scored at the annotation's native resolution
 (--score-at-model-res scores against annotations resized to the model's).
-Runs on CUDA unless --device says otherwise. Not ported: --dataset ytvos,
---data-parallel (ROADMAP.md §A); the frame stream is iterated directly.
+YouTube-VOS: the server's submission tree, Annotations/<vid>/<stem>.png at
+the video's original size for every frame meta.json lists; objects that
+appear mid-video are live from their first annotated frame. Runs on CUDA
+unless --device says otherwise. Not ported: --data-parallel (ROADMAP.md §A).
 """
 
 import argparse
@@ -29,19 +36,24 @@ import time
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+PER_FRAME_LIVE_FROM = ("--per-frame does not support mid-video objects "
+                       "(live_from > 0 in this sequence group); use the "
+                       "default chunked dispatch")
+
 
 def _not_ported(what: str) -> SystemExit:
     return SystemExit(f"{what} is not ported to the PyTorch package yet "
                       "(see ROADMAP.md §A)")
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--preset", default="p3_multi_object")
     ap.add_argument("--set", nargs="*", default=[],
                     help="dot-path overrides, e.g. model.backbone=resnet18")
     ap.add_argument("--dataset", choices=["davis", "ytvos"], default="davis")
     ap.add_argument("--davis-root", default="/root/data/DAVIS")
+    ap.add_argument("--ytvos-root", default="data/YouTubeVOS")
     ap.add_argument("--chunk", type=int, default=8,
                     help="frames per chunk (chunked dispatch)")
     ap.add_argument("--per-frame", action="store_true",
@@ -59,18 +71,15 @@ def main():
     ap.add_argument("--no-template-update", action="store_true",
                     help="keep frame-1 template masks for the cost IoU term")
     ap.add_argument("--device", default="cuda")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
-    if args.dataset == "ytvos":
-        raise _not_ported("--dataset ytvos (the YouTube-VOS reader and "
-                          "submission writer)")
     if args.data_parallel:
         raise _not_ported("--data-parallel (the multi-device mesh)")
 
     import numpy as np
 
     from dmm_net_tpu_torch.config import preset
-    from dmm_net_tpu_torch.data.davis import DavisDataset
+    from dmm_net_tpu_torch.data.pipeline import RingStager
     from dmm_net_tpu_torch.eval.davis_jf import evaluate_sequence, upsample_labels
     from dmm_net_tpu_torch.infer.batching import batch_sequence_streams
     from dmm_net_tpu_torch.infer.engine import InferenceEngine
@@ -97,40 +106,26 @@ def main():
                  "--per-frame")
         args.per_frame = True
 
-    ds = DavisDataset(args.davis_root, split=args.split or "val",
-                      image_size=cfg.model.image_size,
-                      proposal_dir=args.proposal_dir,
-                      max_objects=cfg.matching.max_templates,
-                      max_proposals=cfg.matching.max_proposals)
-    seqs = args.sequences or ds.sequences
-    if not seqs:
-        raise SystemExit(f"no sequences found under {args.davis_root}")
+    kw = dict(image_size=cfg.model.image_size, proposal_dir=args.proposal_dir,
+              max_objects=cfg.matching.max_templates,
+              max_proposals=cfg.matching.max_proposals)
+    if args.dataset == "davis":
+        from dmm_net_tpu_torch.data.davis import DavisDataset
+        ds = DavisDataset(args.davis_root, split=args.split or "val", **kw)
+        seqs = args.sequences or ds.sequences
+        if not seqs:
+            raise SystemExit(f"no sequences found under {args.davis_root}")
+    else:
+        from dmm_net_tpu_torch.data.ytvos import YTVOSDataset
+        ds = YTVOSDataset(args.ytvos_root, split=args.split or "valid", **kw)
+        seqs = args.sequences or ds.videos
+        if not seqs:
+            raise SystemExit(f"no videos found under {args.ytvos_root}")
     engine = InferenceEngine(cfg, variables=variables,
                              update_templates=not args.no_template_update,
                              device=args.device)
 
-    results = {}
-    total_frames = 0
-    infer_seconds = 0.0
-    for name in seqs:
-        sd0 = ds.sequence_stream(name)
-        sd = batch_sequence_streams([sd0])
-        t0 = time.time()
-        if args.per_frame:
-            res = engine.run_sequence(sd["frames"], sd["tmpl_masks"],
-                                      sd["tmpl_valid"], sd["first_frame"])
-        else:
-            res = engine.run_stream_chunked(sd["frames"], sd["tmpl_masks"],
-                                            sd["tmpl_valid"], sd["first_frame"],
-                                            chunk=args.chunk)
-        infer_seconds += time.time() - t0
-        labels = res["labels"][:sd["lengths"][0], 0]
-        total_frames += labels.shape[0]
-        for t in range(labels.shape[0]):
-            engine.write_png(labels[t], os.path.join(args.out, name,
-                                                     f"{t:05d}.png"))
-        if args.no_eval:
-            continue
+    def eval_davis(name, labels, sd0):
         if args.score_at_model_res:
             gt = np.stack([ds.load_annotation(p) for p in sd0["annotations"]])
             pred = labels[:gt.shape[0]]
@@ -148,6 +143,62 @@ def main():
                                            "J_decay", "F_recall", "F_decay")}
         log.info("%s: J&F=%.3f", name, r["J&F"])
 
+    def write_ytvos(name, labels, sd0):
+        from dmm_net_tpu_torch.data.ytvos import write_submission
+        # the server wants a PNG for every frame meta.json lists (the valid
+        # split's Annotations/ holds only each object's first frame)
+        meta_objs = ds.meta.get(name, {}).get("objects", {})
+        meta_stems = sorted({s for od in meta_objs.values()
+                             for s in od.get("frames", [])})
+        stems = meta_stems or sd0["annotated_stems"] or sd0["frame_stems"]
+        pick = [sd0["frame_stems"].index(s) for s in stems
+                if s in sd0["frame_stems"]]
+        full_size = None        # the server expects original-size PNGs
+        ann_dir = os.path.join(args.ytvos_root, args.split or "valid",
+                               "Annotations", name)
+        if os.path.isdir(ann_dir):
+            first = sorted(os.listdir(ann_dir))
+            if first:
+                from PIL import Image
+                with Image.open(os.path.join(ann_dir, first[0])) as im:
+                    full_size = (im.height, im.width)
+        write_submission(args.out, name, [sd0["frame_stems"][i] for i in pick],
+                         labels[pick], sd0["object_ids"], full_size=full_size)
+        log.info("%s: %d frames -> submission", name, labels.shape[0])
+
+    results = {}
+    total_frames = 0
+    infer_seconds = 0.0
+    for name in seqs:
+        sd0 = ds.sequence_stream(name)
+        sd = batch_sequence_streams([sd0])
+        lf = sd.get("live_from")
+        if args.per_frame and lf is not None and np.any(np.asarray(lf) > 0):
+            # run_sequence has no live_from gating: a mid-video object would
+            # be matched from frame 0 with frame-0 template features
+            raise SystemExit(PER_FRAME_LIVE_FROM)
+        stream = RingStager(sd["frames"], depth=2, device=engine.device)
+        t0 = time.time()
+        if args.per_frame:
+            res = engine.run_sequence(iter(stream), sd["tmpl_masks"],
+                                      sd["tmpl_valid"], sd["first_frame"])
+        else:
+            res = engine.run_stream_chunked(
+                iter(stream), sd["tmpl_masks"], sd["tmpl_valid"],
+                sd["first_frame"], chunk=args.chunk, live_from=lf,
+                tmpl_frames=sd.get("tmpl_frames"))
+        infer_seconds += time.time() - t0
+        labels = res["labels"][:sd["lengths"][0], 0]
+        total_frames += labels.shape[0]
+        if args.dataset == "ytvos":
+            write_ytvos(name, labels, sd0)
+            continue
+        for t in range(labels.shape[0]):
+            engine.write_png(labels[t], os.path.join(args.out, name,
+                                                     f"{t:05d}.png"))
+        if not args.no_eval:
+            eval_davis(name, labels, sd0)
+
     def mean(key):
         return (float(np.mean([r[key] for r in results.values()]))
                 if results else None)
@@ -155,7 +206,7 @@ def main():
     summary = {
         "sequences": results, "J": mean("J"), "F": mean("F"),
         "J&F": mean("J&F"),
-        # inference only (engine; no scoring or PNG writing)
+        # inference only (engine and staging; no scoring or PNG writing)
         "fps": total_frames / max(infer_seconds, 1e-9),
         "frames": total_frames,
         "dispatch": "per_frame" if args.per_frame else "chunked_scan",
@@ -167,6 +218,7 @@ def main():
         json.dump(summary, f, indent=2)
     log.info("overall: %s", {k: v for k, v in summary.items()
                              if k != "sequences"})
+    return summary
 
 
 if __name__ == "__main__":

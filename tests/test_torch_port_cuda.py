@@ -302,3 +302,42 @@ def test_cuda_hungarian_step_launches_b1_and_b2_once(cuda_kernels):
     X = out["assignments"]
     assert set(np.unique(X).tolist()) <= {0.0, 1.0}
     assert (X.sum(-1)[:, valid] == 1).all() and X.sum(-2).max() <= 1
+
+
+@pytest.mark.cuda
+def test_cuda_ring_stager_stages_in_order_and_raises(cuda_kernels):
+    """Items staged through pinned memory on the stager's own stream arrive
+    on the card in order and equal to the host arrays; a failed staging
+    raises in the consumer."""
+    import numpy as np
+    from dmm_net_tpu_torch.data.pipeline import RingStager
+    rng = np.random.RandomState(0)
+    items = [{"frame": rng.randint(0, 256, (1, 64, 96, 3)).astype(np.uint8),
+              "prop_masks": rng.rand(1, 8, 64, 96).astype(np.float32),
+              "prop_valid": rng.rand(1, 8) > 0.5} for _ in range(6)]
+    got = list(RingStager(iter(items), depth=2))
+    assert len(got) == 6
+    for g, w in zip(got, items):
+        for k in w:
+            assert g[k].device.type == "cuda"
+            assert np.array_equal(g[k].cpu().numpy(), w[k])
+    with pytest.raises(TypeError):
+        list(RingStager(iter(items[:2] + [{"frame": np.array([object()])}])))
+
+
+@pytest.mark.cuda
+def test_cuda_engine_takes_staged_items(cuda_kernels):
+    """run_stream_chunked on items staged to the card equals the same run
+    on numpy items."""
+    from dmm_net_tpu_torch.data.pipeline import RingStager
+    from dmm_net_tpu_torch.infer.engine import InferenceEngine
+    cfg = _small_p3()
+    frames, tmpl, valid, items = _full_grid_items(2)
+    engine = InferenceEngine(cfg, seed=0)
+    want = engine.run_stream_chunked(iter(items), tmpl, valid, frames[0], chunk=2)
+    _build.reset_launch_counts()
+    got = engine.run_stream_chunked(iter(RingStager(iter(items))), tmpl, valid,
+                                    frames[0], chunk=2)
+    assert _build.launch_counts()["fused_resolve_upsample"] == len(items)
+    for k in ("labels", "assignments"):
+        assert (got[k] == want[k]).all(), k

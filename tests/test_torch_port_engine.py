@@ -151,14 +151,15 @@ def test_engine_defaults_to_cuda():
 
 
 def test_engine_rejects_unported_paths(tmp_path):
-    """What stays unported: the mesh, the YouTube-VOS CLI path and orbax
-    checkpoint directories; each refuses and names ROADMAP.md."""
+    """What stays unported: the mesh (the engine's and the CLI's
+    --data-parallel) and orbax checkpoint directories; each refuses and
+    names ROADMAP.md."""
     from dmm_net_tpu_torch.utils.checkpoint import load_msgpack_ckpt
     cfg = config_from_dict(_slice_cfg("float32").to_dict())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         InferenceEngine(cfg, mesh=object(), device="cpu")
     r = subprocess.run([sys.executable, str(_ROOT / "infer_torch.py"),
-                        "--dataset", "ytvos", "--device", "cpu"],
+                        "--data-parallel", "--device", "cpu"],
                        cwd=str(tmp_path), capture_output=True, text=True,
                        timeout=300)
     assert r.returncode != 0 and "ROADMAP" in r.stderr, r.stderr[-2000:]
@@ -172,6 +173,9 @@ def test_port_imports_no_jax():
             "'dmm_net_tpu_torch.'):\n"
             "    importlib.import_module(m.name)\n"
             "import infer_torch\n"
+            "import importlib.util as u\n"
+            "s = u.spec_from_file_location('x', 'tools/extract_proposals_torch.py')\n"
+            "s.loader.exec_module(u.module_from_spec(s))\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'dmm_net_tpu')]\n"
             "assert not bad, bad\n"
@@ -187,8 +191,9 @@ def test_port_sources_never_name_jax():
     pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax)\b"
                          r"|\bdmm_net_tpu\.|from\s+dmm_net_tpu\s+import",
                          re.MULTILINE)
-    files = sorted(_PKG.rglob("*.py")) + [_ROOT / "chip_smoke.py",
-                                          _ROOT / "infer_torch.py"]
+    files = sorted(_PKG.rglob("*.py")) + [
+        _ROOT / "chip_smoke.py", _ROOT / "infer_torch.py",
+        _ROOT / "tools" / "extract_proposals_torch.py"]
     assert len(files) >= 28
     for f in files:
         hit = pattern.search(f.read_text())
