@@ -9,7 +9,8 @@ with [{"rle": {...}, "score": s}, ...]. Without a cache, proposals are
 synthesised from the ground truth (the masks, shifted copies and random
 boxes) with the JAX package's seeds, so both packages see the same inputs.
 
-Counterpart of the JAX package's data/davis.py as its inference CLI uses it.
+Counterpart of the JAX package's data/davis.py: the inference streams and
+the training clips (``clip_batches``).
 Images are decoded with PIL, imported only when a file is read; frames are
 resized with PIL's BILINEAR and labels with NEAREST, as the JAX package's
 PIL path does.
@@ -162,3 +163,50 @@ class DavisDataset:
                 "first_frame": self.load_frame(frames[0])[None],
                 "num_frames": len(frames),
                 "annotations": anns}
+
+    def clip_batches(self, batch_size: int, clip_length: int,
+                     seed: int = 0, max_objects: Optional[int] = None
+                     ) -> Iterator[Dict[str, np.ndarray]]:
+        """Random training clips in the train/loop.py batch layout, drawn
+        as the JAX package's reader draws them (same RandomState order,
+        same ground-truth proposals)."""
+        rng = np.random.RandomState(seed)
+        M = max_objects or self.max_objects
+        H, W = self.image_size
+        while True:
+            batch = {"frames": [], "prop_masks": [], "prop_valid": [],
+                     "gt_masks": [], "tmpl_masks": [], "tmpl_valid": []}
+            for _ in range(batch_size):
+                seq = self.sequences[rng.randint(len(self.sequences))]
+                fps = self.frame_paths(seq)
+                anns = self.annotation_paths(seq)
+                T = min(len(fps), len(anns))
+                t0 = rng.randint(0, max(T - clip_length + 1, 1))
+                ts = range(t0, min(t0 + clip_length, T))
+                ts = list(ts) + [ts[-1]] * (clip_length - len(list(ts)))
+                frames, pms, pvs, gts = [], [], [], []
+                ann_first = self.load_annotation(anns[ts[0]])
+                oids = sorted(int(x) for x in set(np.unique(ann_first)) - {0})[:M]
+                for t in ts:
+                    frames.append(self.load_frame(fps[t]))
+                    gt = self.load_annotation(anns[t])
+                    pm, pv = self.load_proposals(seq, t, gt_labels=gt,
+                                                 seed=seed)
+                    pms.append(pm)
+                    pvs.append(pv)
+                    g = np.zeros((M, H, W), np.float32)
+                    for i, oid in enumerate(oids):
+                        g[i] = (gt == oid)
+                    gts.append(g)
+                tm = np.zeros((M, H, W), np.float32)
+                tv = np.zeros((M,), bool)
+                for i, oid in enumerate(oids):
+                    tm[i] = (ann_first == oid)
+                    tv[i] = True
+                batch["frames"].append(np.stack(frames))
+                batch["prop_masks"].append(np.stack(pms))
+                batch["prop_valid"].append(np.stack(pvs))
+                batch["gt_masks"].append(np.stack(gts))
+                batch["tmpl_masks"].append(tm)
+                batch["tmpl_valid"].append(tv)
+            yield {k: np.stack(v) for k, v in batch.items()}

@@ -15,8 +15,9 @@ What differs from DAVIS:
   * the proposal cache (tools/extract_proposals_torch.py) and every lookup
     are keyed by the raw frame's stem, never by a loop index.
 
-Counterpart of the JAX package's data/ytvos.py as its inference CLI uses
-it; training clips (``clip_batches``) come with training. Images are
+Counterpart of the JAX package's data/ytvos.py: the inference streams and
+the training clips (``clip_batches``, with ``live_from`` and
+``gt_valid``). Images are
 decoded with PIL, imported only when a file is read, with the resizes of
 the port's DAVIS reader (BILINEAR frames, NEAREST labels and masks).
 """
@@ -187,6 +188,90 @@ class YTVOSDataset:
             valid[i] = True
             i += 1
         return masks, valid
+
+
+    def clip_batches(self, batch_size: int, clip_length: int,
+                     seed: int = 0, max_objects: Optional[int] = None
+                     ) -> Iterator[Dict[str, np.ndarray]]:
+        """Random training clips, drawn as the JAX package's reader draws
+        them. What differs from the DAVIS sampler:
+          * the clip timeline is the video's ANNOTATED frames (every ~5th
+            raw frame) — the reference's training recipe supervises only
+            annotated frames;
+          * objects may appear mid-clip: each object's template mask comes
+            from its own first annotated frame inside the clip, exported
+            as `live_from` (B, M) clip indices (the training analog of the
+            engine's live_from gating), and `gt_valid` (B, T, M) masks the
+            loss to frames where the object is live.
+        Yields the train/loop.py batch layout + live_from + gt_valid.
+        """
+        rng = np.random.RandomState(seed)
+        M = max_objects or self.max_objects
+        H, W = self.image_size
+        # only videos with at least one annotated frame can train
+        vids = [v for v in self.videos if self.annotation_paths(v)]
+        if not vids:
+            raise ValueError(f"no annotated videos under {self.root}/"
+                             f"{self.split}")
+        while True:
+            batch = {"frames": [], "prop_masks": [], "prop_valid": [],
+                     "gt_masks": [], "tmpl_masks": [], "tmpl_valid": [],
+                     "live_from": [], "gt_valid": []}
+            for _ in range(batch_size):
+                vid = vids[rng.randint(len(vids))]
+                anns = self.annotation_paths(vid)
+                stems = sorted(anns)
+                frame_by_stem = {
+                    os.path.splitext(os.path.basename(p))[0]: p
+                    for p in self.frame_paths(vid)}
+                stems = [s for s in stems if s in frame_by_stem]
+                t0 = rng.randint(0, max(len(stems) - clip_length + 1, 1))
+                ts = stems[t0:t0 + clip_length]
+                ts = ts + [ts[-1]] * (clip_length - len(ts))  # pad short
+
+                gts, frames, pms, pvs = [], [], [], []
+                for t, stem in enumerate(ts):
+                    frames.append(self.load_frame(frame_by_stem[stem]))
+                    gts.append(self.load_annotation(anns[stem]))
+                    pm, pv = self.load_proposals(vid, stem, gts[-1])
+                    pms.append(pm)
+                    pvs.append(pv)
+
+                # objects present in the clip, templated at their first
+                # annotated clip frame
+                tm = np.zeros((M, H, W), np.float32)
+                tv = np.zeros((M,), bool)
+                live = np.zeros((M,), np.int32)
+                gt_m = np.zeros((clip_length, M, H, W), np.float32)
+                gt_v = np.zeros((clip_length, M), bool)
+                slot = 0
+                seen: Dict[int, int] = {}
+                for t, gt in enumerate(gts):
+                    for oid in sorted(set(np.unique(gt)) - {0}):
+                        if oid not in seen and slot < M:
+                            seen[oid] = slot
+                            tm[slot] = (gt == oid)
+                            tv[slot] = True
+                            live[slot] = t
+                            slot += 1
+                        if oid in seen:
+                            i = seen[oid]
+                            gt_m[t, i] = (gt == oid)
+                # every clip frame is annotated by construction, so a live
+                # object is supervised at every t >= live_from — including
+                # occlusion frames, where its (empty) GT teaches "absent"
+                for i in range(slot):
+                    gt_v[:, i] = np.arange(clip_length) >= live[i]
+
+                batch["frames"].append(np.stack(frames))
+                batch["prop_masks"].append(np.stack(pms))
+                batch["prop_valid"].append(np.stack(pvs))
+                batch["gt_masks"].append(gt_m)
+                batch["tmpl_masks"].append(tm)
+                batch["tmpl_valid"].append(tv)
+                batch["live_from"].append(live)
+                batch["gt_valid"].append(gt_v)
+            yield {k: np.stack(v) for k, v in batch.items()}
 
 
 def write_submission(out_dir: str, vid: str, stems: List[str],

@@ -37,6 +37,9 @@ _LAUNCHES: Dict[str, int] = {"fused_pool_cost_match": 0,
                              "fused_resolve_upsample": 0,
                              "fused_cost_match": 0,
                              "roi_align": 0}
+# Calls of B1's backward on CUDA (kernels/matcher.py): autograd through the
+# plain version, with no kernel of its own, so counted apart from launches.
+_BACKWARD_CALLS: Dict[str, int] = {"fused_pool_cost_match": 0}
 
 # C signatures: every pointer and the stream are c_void_p (a bare Python int
 # would be passed as a 32-bit int and cut the pointer). Every function
@@ -152,6 +155,16 @@ def launch_counts() -> Dict[str, int]:
     return dict(_LAUNCHES)
 
 
+def count_backward(name: str) -> None:
+    _BACKWARD_CALLS[name] += 1
+
+
+def backward_calls() -> Dict[str, int]:
+    return dict(_BACKWARD_CALLS)
+
+
 def reset_launch_counts() -> None:
-    for k in _LAUNCHES:
-        _LAUNCHES[k] = 0
+    """Set every launch count and every backward-call count to 0."""
+    for counts in (_LAUNCHES, _BACKWARD_CALLS):
+        for k in counts:
+            counts[k] = 0

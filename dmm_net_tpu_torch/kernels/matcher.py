@@ -9,9 +9,18 @@ is ``csrc/matcher.cu``: B1 is three launches (pooling, the cost phase
 spread over pixel slices, Sinkhorn), B3 the last two. Its header says how
 the work is split and what bounds it on the card (bytes: ~49 MB read by B1
 at p3 B=16, ~15 us at 3.35 TB/s; the Sinkhorn's dependent iterations are a
-latency floor at small batches). Forward only: serving needs no gradient,
-and the backward comes with the training slice as a
-``torch.autograd.Function``.
+latency floor at small batches).
+
+B1 is differentiable (B1', the counterpart of the JAX package's
+``_fpcm_fwd`` / ``_fpcm_bwd`` custom VJP): ``_PoolCostMatch`` is a
+``torch.autograd.Function`` whose forward is the kernel (the plain version
+on the CPU) and whose backward recomputes ``pool_cost_match_plain`` on the
+saved inputs and differentiates it with autograd: the exact gradient of the
+unrolled Sinkhorn with respect to the embedding, both pooling and cost
+masks and the template features, none for the validity masks. The JAX
+backward is the same plain-jnp recompute, with no Pallas, so this is the
+faithful port rather than a fallback. ``matching.implicit_grad`` does not
+reach the fused path in either package.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs its
 plain version (``pool_cost_match_plain``, ``cost_match_plain``) for CPU
@@ -110,14 +119,23 @@ def fused_pool_cost_match(emb: torch.Tensor, prop_masks_pool: torch.Tensor,
               "tmpl_feats": (tmpl_feats, (B, M, D)),
               "row_mask": (row_mask, (B, M)), "col_mask": (col_mask, (B, N))}
     _check_shapes(shapes, emb.device)
-    if emb.device.type == "cpu":
-        return pool_cost_match_plain(
-            emb, prop_masks_pool, tmpl_masks_cost, prop_masks_cost,
-            tmpl_feats, row_mask, col_mask, epsilon=epsilon, iters=iters,
-            iou_weight=iou_weight, epsilon_init=epsilon_init)
-    if emb.device.type != "cuda":
+    if emb.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_pool_cost_match: unsupported device {emb.device}")
-    _check_cuda_inputs("fused_pool_cost_match", shapes, M)
+    if emb.device.type == "cuda":
+        _check_cuda_inputs("fused_pool_cost_match", shapes, M)
+    return _PoolCostMatch.apply(
+        emb, prop_masks_pool, tmpl_masks_cost, prop_masks_cost, tmpl_feats,
+        row_mask, col_mask, float(epsilon), int(iters), float(iou_weight),
+        epsilon_init)
+
+
+def _launch_pool_cost_match(emb, prop_masks_pool, tmpl_masks_cost,
+                            prop_masks_cost, tmpl_feats, row_mask, col_mask,
+                            epsilon, iters, iou_weight, epsilon_init):
+    """One B1 launch on checked CUDA inputs."""
+    B, P, D = emb.shape
+    M, Pc = tmpl_masks_cost.shape[1:]
+    N = prop_masks_pool.shape[1]
     rm = row_mask.to(torch.float32).contiguous()
     cm = col_mask.to(torch.float32).contiguous()
     lib = _build.library("matcher")
@@ -140,6 +158,39 @@ def fused_pool_cost_match(emb: torch.Tensor, prop_masks_pool: torch.Tensor,
     _build.check(err, "fused_pool_cost_match")
     _build.count("fused_pool_cost_match")
     return X
+
+
+class _PoolCostMatch(torch.autograd.Function):
+    """B1 with B1' as its backward. Forward: the CUDA kernel (the plain
+    version for CPU tensors); it saves the five float inputs and the two
+    validity masks. Backward: ``pool_cost_match_plain`` recomputed on
+    detached copies under ``enable_grad`` and differentiated by
+    ``torch.autograd.grad``; on CUDA each backward counts one call in
+    ``_build.backward_calls()`` (it launches no kernel of its own)."""
+
+    @staticmethod
+    def forward(ctx, emb, prop_masks_pool, tmpl_masks_cost, prop_masks_cost,
+                tmpl_feats, row_mask, col_mask, epsilon, iters, iou_weight,
+                epsilon_init):
+        args = (emb, prop_masks_pool, tmpl_masks_cost, prop_masks_cost,
+                tmpl_feats, row_mask, col_mask)
+        ctx.save_for_backward(*args)
+        ctx.opts = dict(epsilon=epsilon, iters=iters, iou_weight=iou_weight,
+                        epsilon_init=epsilon_init)
+        if emb.device.type == "cpu":
+            return pool_cost_match_plain(*args, **ctx.opts)
+        return _launch_pool_cost_match(*args, **ctx.opts)
+
+    @staticmethod
+    def backward(ctx, gX):
+        *floats, row_mask, col_mask = ctx.saved_tensors
+        with torch.enable_grad():
+            xs = [t.detach().requires_grad_(True) for t in floats]
+            X = pool_cost_match_plain(*xs, row_mask, col_mask, **ctx.opts)
+            grads = torch.autograd.grad(X, xs, gX)
+        if gX.device.type == "cuda":
+            _build.count_backward("fused_pool_cost_match")
+        return (*grads, None, None, None, None, None, None)
 
 
 def cost_match_plain(tmpl_masks, prop_masks, tmpl_feats, prop_feats,

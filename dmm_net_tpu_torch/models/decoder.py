@@ -38,7 +38,7 @@ class ConvParams(nn.Module):
 
 
 def _conv(x, w, dtype):
-    return F.conv2d(x.to(dtype), w, None, 1, w.shape[-1] // 2)
+    return F.conv2d(x.to(dtype), w.to(dtype), None, 1, w.shape[-1] // 2)
 
 
 class ConvGRUCell(nn.Module):
@@ -60,10 +60,11 @@ class ConvGRUCell(nn.Module):
         x = x.to(dt)
         w = torch.cat([self.gate_z.weight, self.gate_r.weight], 0)
         b = torch.cat([self.gate_z.bias, self.gate_r.bias])
-        zr = torch.sigmoid(_conv(torch.cat([x, h], 1), w, dt) + b[:, None, None])
+        zr = torch.sigmoid(_conv(torch.cat([x, h], 1), w, dt)
+                           + b.to(dt)[:, None, None])
         z, r = zr[:, :f], zr[:, f:]
         cand = torch.tanh(_conv(torch.cat([x, r * h], 1), self.cand.weight, dt)
-                          + self.cand.bias[:, None, None])
+                          + self.cand.bias.to(dt)[:, None, None])
         return (1.0 - z) * h + z * cand
 
 
@@ -170,7 +171,7 @@ class SplitConcatConv(nn.Module):
             return _conv(x, w, self.dtype)
 
         obj, shared = group_conv(False), group_conv(True)
-        bias = self.bias[:, None, None]
+        bias = self.bias.to(self.dtype)[:, None, None]
         if obj is None:
             out = (shared + bias)[:, None].expand((B, M) + shared.shape[1:])
             return out.reshape((B * M,) + shared.shape[1:])

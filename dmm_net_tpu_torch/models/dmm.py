@@ -23,7 +23,7 @@ from dmm_net_tpu_torch.config import Config
 from dmm_net_tpu_torch.data.pipeline import IMAGENET_MEAN, IMAGENET_STD
 from dmm_net_tpu_torch.kernels.matcher import fused_pool_cost_match
 from dmm_net_tpu_torch.models.decoder import RefinementDecoder, SharedFPNDecoder
-from dmm_net_tpu_torch.models.layers import Conv, init_random
+from dmm_net_tpu_torch.models.layers import BatchNorm, Conv, init_random
 from dmm_net_tpu_torch.models.resnet import backbone_by_name, feature_dims
 from dmm_net_tpu_torch.ops.cost import cost_matrix
 from dmm_net_tpu_torch.ops.matching import (hard_assignment, pgd_match,
@@ -85,18 +85,29 @@ def init_frame_state(cfg: Config, tmpl_masks: torch.Tensor) -> FrameState:
 
 
 class DMMNet(nn.Module):
-    """Differentiable Mask-Matching network (one frame step, inference).
+    """Differentiable Mask-Matching network (one frame step).
 
     Weights are random from ``seed`` (a ``torch.Generator``) until the
-    caller loads a checkpoint (weights.load_flax_variables)."""
+    caller loads a checkpoint (weights.load_flax_variables).
 
-    def __init__(self, config: Config, device=None, seed: int = 0):
+    ``train=False`` (serving): eval mode, no gradients, parameters stored in
+    their compute dtype. ``train=True`` (built by train/loop.py): training
+    mode, float32 master parameters that take gradients, and, with
+    ``cfg.model.train_bn``, backbone BatchNorms on batch statistics (their
+    running statistics move only through ``update_bn_stats``). Serving a
+    trained model takes ``eval()``, which puts every BatchNorm back on its
+    running statistics, as the JAX package's engines build ``train=False``.
+    """
+
+    def __init__(self, config: Config, device=None, seed: int = 0,
+                 train: bool = False):
         super().__init__()
         cfg = config
         self.config = cfg
         dims = feature_dims(cfg.model.backbone)
         self.backbone = backbone_by_name(cfg.model.backbone,
-                                         dtype=_dtype(cfg.model.backbone_dtype))
+                                         dtype=_dtype(cfg.model.backbone_dtype),
+                                         train_bn=train and cfg.model.train_bn)
         self.feat_proj = Conv(dims["c4"], cfg.model.feature_dim, 1,
                               dtype=torch.float32)
         m = cfg.model
@@ -115,10 +126,19 @@ class DMMNet(nn.Module):
             self.decoder = RefinementDecoder(
                 dims, features=m.decoder_dim, recurrent=m.decoder_recurrent,
                 dtype=_dtype(m.decoder_dtype), fine_level=m.decoder_fine_level)
+        if train:
+            self.float()
         init_random(self, torch.Generator().manual_seed(seed))
         self.to(resolve_device(device))
-        self.eval()
-        self.requires_grad_(False)
+        self.train(train)
+        self.requires_grad_(train)
+
+    def update_bn_stats(self) -> None:
+        """Apply each train-mode BatchNorm's last batch statistics to its
+        running statistics (once per frame of a training clip)."""
+        for m in self.modules():
+            if isinstance(m, BatchNorm):
+                m.update_running_stats()
 
     @property
     def device(self) -> torch.device:

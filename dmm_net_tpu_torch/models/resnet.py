@@ -1,7 +1,9 @@
 """ResNet backbone returning the {c1..c5} pyramid (strides 2..32), NCHW.
 
-Counterpart of the JAX package's models/resnet.py, inference only (frozen
-BatchNorm, eps 1e-5). The stem is a plain 7x7/s2 conv with pad 3: the JAX
+Counterpart of the JAX package's models/resnet.py. BatchNorm is frozen
+(eps 1e-5) unless the backbone is built with ``train_bn``, which gives its
+BatchNorms batch statistics in training mode (models/layers.BatchNorm).
+The stem is a plain 7x7/s2 conv with pad 3: the JAX
 package's space-to-depth stem is an exact rewrite of that conv. Stride-2
 3x3 convs pad (1, 1) on both sides, then max-pool 3/2 pad 1.
 
@@ -12,13 +14,14 @@ rename: ``BasicBlock_i`` / ``BottleneckBlock_i`` -> ``blocks.i``,
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Dict, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from dmm_net_tpu_torch.models.layers import Conv, FrozenBatchNorm
+from dmm_net_tpu_torch.models.layers import BatchNorm, Conv
 
 
 class BottleneckBlock(nn.Module):
@@ -26,19 +29,20 @@ class BottleneckBlock(nn.Module):
 
     expansion = 4
 
-    def __init__(self, cin: int, filters: int, stride: int, dtype):
+    def __init__(self, cin: int, filters: int, stride: int, dtype,
+                 norm=BatchNorm):
         super().__init__()
         out = filters * 4
         self.conv0 = Conv(cin, filters, 1, bias=False, dtype=dtype)
-        self.bn0 = FrozenBatchNorm(filters, dtype)
+        self.bn0 = norm(filters, dtype)
         self.conv1 = Conv(filters, filters, 3, stride, 1, bias=False, dtype=dtype)
-        self.bn1 = FrozenBatchNorm(filters, dtype)
+        self.bn1 = norm(filters, dtype)
         self.conv2 = Conv(filters, out, 1, bias=False, dtype=dtype)
-        self.bn2 = FrozenBatchNorm(out, dtype, zero_scale=True)
+        self.bn2 = norm(out, dtype, zero_scale=True)
         self.has_proj = stride != 1 or cin != out
         if self.has_proj:
             self.conv_proj = Conv(cin, out, 1, stride, 0, bias=False, dtype=dtype)
-            self.norm_proj = FrozenBatchNorm(out, dtype)
+            self.norm_proj = norm(out, dtype)
 
     def forward(self, x):
         y = F.relu(self.bn0(self.conv0(x)))
@@ -53,16 +57,17 @@ class BasicBlock(nn.Module):
 
     expansion = 1
 
-    def __init__(self, cin: int, filters: int, stride: int, dtype):
+    def __init__(self, cin: int, filters: int, stride: int, dtype,
+                 norm=BatchNorm):
         super().__init__()
         self.conv0 = Conv(cin, filters, 3, stride, 1, bias=False, dtype=dtype)
-        self.bn0 = FrozenBatchNorm(filters, dtype)
+        self.bn0 = norm(filters, dtype)
         self.conv1 = Conv(filters, filters, 3, 1, 1, bias=False, dtype=dtype)
-        self.bn1 = FrozenBatchNorm(filters, dtype, zero_scale=True)
+        self.bn1 = norm(filters, dtype, zero_scale=True)
         self.has_proj = stride != 1 or cin != filters
         if self.has_proj:
             self.conv_proj = Conv(cin, filters, 1, stride, 0, bias=False, dtype=dtype)
-            self.norm_proj = FrozenBatchNorm(filters, dtype)
+            self.norm_proj = norm(filters, dtype)
 
     def forward(self, x):
         y = F.relu(self.bn0(self.conv0(x)))
@@ -73,18 +78,19 @@ class BasicBlock(nn.Module):
 
 class ResNet(nn.Module):
     def __init__(self, stage_sizes: Sequence[int], block_cls, dtype,
-                 num_filters: int = 64):
+                 num_filters: int = 64, train_bn: bool = False):
         super().__init__()
         self.dtype = dtype
+        norm = partial(BatchNorm, train_stats=train_bn)
         self.conv_init = Conv(3, num_filters, 7, 2, 3, bias=False, dtype=dtype)
-        self.bn_init = FrozenBatchNorm(num_filters, dtype)
+        self.bn_init = norm(num_filters, dtype)
         blocks, self.stage_ends = [], []
         cin = num_filters
         for i, count in enumerate(stage_sizes):
             filters = num_filters * 2 ** i
             for j in range(count):
                 stride = 2 if i > 0 and j == 0 else 1
-                blocks.append(block_cls(cin, filters, stride, dtype))
+                blocks.append(block_cls(cin, filters, stride, dtype, norm))
                 cin = filters * block_cls.expansion
             self.stage_ends.append(len(blocks))
         self.blocks = nn.ModuleList(blocks)
@@ -109,11 +115,12 @@ _ARCHS = {"resnet18": ((2, 2, 2, 2), BasicBlock),
           "resnet101": ((3, 4, 23, 3), BottleneckBlock)}
 
 
-def backbone_by_name(name: str, dtype=torch.bfloat16) -> ResNet:
+def backbone_by_name(name: str, dtype=torch.bfloat16,
+                     train_bn: bool = False) -> ResNet:
     if name not in _ARCHS:
         raise KeyError(f"unknown backbone {name!r}; have {sorted(_ARCHS)}")
     stages, block = _ARCHS[name]
-    return ResNet(stages, block, dtype)
+    return ResNet(stages, block, dtype, train_bn=train_bn)
 
 
 def feature_dims(name: str) -> dict:

@@ -1,4 +1,13 @@
-"""Read the JAX package's flax msgpack checkpoints without flax or msgpack.
+"""Checkpoints: the port's own (``Checkpointer``, torch files) and the JAX
+package's flax msgpack blobs, read without flax or msgpack.
+
+``Checkpointer`` writes ``<dir>/step_<n>.pt``: a ``torch.save`` dict of the
+step, the model's state_dict (float32 parameters and BN running
+statistics), the optimizer's state with its schedule, and the config dict
+(``Config.to_dict()``, the same dict a msgpack blob carries). Each file is
+written to a temporary name and renamed, so a crash never leaves a torn
+checkpoint; the last ``keep`` are kept. ``load_checkpoint`` reads either
+kind for serving.
 
 A checkpoint blob is ``{"config": Config.to_dict(), "variables": {"params",
 "batch_stats"}}`` serialised by ``flax.serialization.msgpack_serialize``:
@@ -16,10 +25,13 @@ with str keys, lists, and read-only numpy leaves of the stored dtype
 from __future__ import annotations
 
 import os
+import re
 import struct
-from typing import Any, Optional, Tuple
+import zipfile
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
 from dmm_net_tpu_torch.config import Config, config_from_dict
 
@@ -144,11 +156,12 @@ def msgpack_restore(data: bytes):
 def load_msgpack_ckpt(path: str) -> Tuple[Optional[Config], dict]:
     """Load a checkpoint blob ``{"config", "variables"}``: returns (its
     config, or None when it carries none; the variables). An orbax checkpoint
-    directory is refused: torch checkpoints come with training."""
+    directory is refused (the port writes torch checkpoints: Checkpointer)."""
     if os.path.isdir(path):
         raise ValueError(
             f"{path}: orbax checkpoint directories are not supported by the "
-            "port (ROADMAP.md §A, item 7); pass a flax msgpack blob")
+            "port (ROADMAP.md §A, item 9); pass a flax msgpack blob or a "
+            "checkpoint written by the port's Checkpointer")
     with open(path, "rb") as f:
         blob = msgpack_restore(f.read())
     if not isinstance(blob, dict) or "variables" not in blob:
@@ -156,3 +169,72 @@ def load_msgpack_ckpt(path: str) -> Tuple[Optional[Config], dict]:
                          "{'config', 'variables'})")
     cfg = config_from_dict(blob["config"]) if "config" in blob else None
     return cfg, blob["variables"]
+
+
+_STEP_FILE = re.compile(r"^step_(\d+)\.pt$")
+
+
+class Checkpointer:
+    """Keep-last-``keep`` torch checkpoints of a TrainState in ``directory``."""
+
+    def __init__(self, directory: str, keep: int = 3):
+        self.directory = directory
+        self.keep = keep
+
+    def _steps(self):
+        if not os.path.isdir(self.directory):
+            return []
+        return sorted(int(m.group(1)) for f in os.listdir(self.directory)
+                      if (m := _STEP_FILE.match(f)))
+
+    def path(self, step: int) -> str:
+        return os.path.join(self.directory, f"step_{step:08d}.pt")
+
+    def latest_step(self) -> Optional[int]:
+        steps = self._steps()
+        return steps[-1] if steps else None
+
+    def save(self, state, step: Optional[int] = None) -> str:
+        """Write ``state`` (a train/loop.TrainState) atomically; returns the
+        file's path."""
+        step = state.step if step is None else step
+        os.makedirs(self.directory, exist_ok=True)
+        path = self.path(step)
+        tmp = path + ".tmp"
+        torch.save({"step": step, "model": state.model.state_dict(),
+                    "optimizer": state.optimizer.state_dict(),
+                    "config": state.model.config.to_dict()}, tmp)
+        os.replace(tmp, path)
+        for old in self._steps()[:-self.keep]:
+            os.remove(self.path(old))
+        return path
+
+    def restore(self, state, step: Optional[int] = None):
+        """Load the checkpoint at ``step`` (the latest by default) into
+        ``state`` in place; returns it."""
+        step = self.latest_step() if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint under {self.directory}")
+        ckpt = torch.load(self.path(step), map_location=state.model.device,
+                          weights_only=True)
+        state.model.load_state_dict(ckpt["model"])
+        state.optimizer.load_state_dict(ckpt["optimizer"])
+        state.step = int(ckpt["step"])
+        return state
+
+
+def load_checkpoint(path: str) -> Tuple[Optional[Config], Dict[str, Any]]:
+    """A checkpoint for serving: returns (its config or None, and either
+    ``{"state_dict": ...}`` for the port's torch checkpoints (a file, or a
+    Checkpointer directory, whose latest step is taken) or
+    ``{"variables": ...}`` for a JAX-package msgpack blob)."""
+    if os.path.isdir(path):
+        step = Checkpointer(path).latest_step()
+        if step is None:
+            return load_msgpack_ckpt(path)     # refuses other directories
+        path = Checkpointer(path).path(step)
+    if zipfile.is_zipfile(path):
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+        return config_from_dict(ckpt["config"]), {"state_dict": ckpt["model"]}
+    cfg, variables = load_msgpack_ckpt(path)
+    return cfg, {"variables": variables}

@@ -10,9 +10,11 @@ Usage:
                         [--out results/p4]
   python infer_torch.py ... --device cpu
 
-A msgpack checkpoint {"config", "variables"} (the JAX package's format)
-carries its own model config, which becomes the base config; --set
-overrides apply on top. Without --ckpt the weights are random (seed 0).
+A checkpoint carries its own model config, which becomes the base config;
+--set overrides apply on top. --ckpt takes a msgpack blob {"config",
+"variables"} (the JAX package's format), a torch checkpoint written by the
+port's trainer (train_torch.py: <logdir>/ckpt/step_<n>.pt), or that
+checkpoint directory (its latest step). Without --ckpt the weights are random (seed 0).
 The default dispatch runs K frames per chunk (--chunk); --per-frame runs
 one frame step at a time and is forced for matching.decode=hungarian. Every
 stream is staged ahead of the engine by data/pipeline.RingStager (decode on
@@ -61,7 +63,9 @@ def main(argv=None):
     ap.add_argument("--data-parallel", action="store_true")
     ap.add_argument("--split", default=None)
     ap.add_argument("--proposal-dir", default=None)
-    ap.add_argument("--ckpt", default=None, help="flax msgpack checkpoint blob")
+    ap.add_argument("--ckpt", default=None,
+                    help="flax msgpack blob, or a train_torch.py checkpoint "
+                    "(file or directory)")
     ap.add_argument("--out", default="results/default")
     ap.add_argument("--sequences", nargs="*", default=None)
     ap.add_argument("--no-eval", action="store_true")
@@ -83,22 +87,23 @@ def main(argv=None):
     from dmm_net_tpu_torch.eval.davis_jf import evaluate_sequence, upsample_labels
     from dmm_net_tpu_torch.infer.batching import batch_sequence_streams
     from dmm_net_tpu_torch.infer.engine import InferenceEngine
-    from dmm_net_tpu_torch.utils.checkpoint import load_msgpack_ckpt
+    from dmm_net_tpu_torch.models.dmm import DMMNet
+    from dmm_net_tpu_torch.utils.checkpoint import load_checkpoint
     from dmm_net_tpu_torch.utils.cli import parse_overrides
 
     logging.basicConfig(format="%(asctime)s infer_torch %(levelname)s: "
                         "%(message)s", level=logging.INFO)
     log = logging.getLogger("infer_torch")
 
-    variables = None
+    loaded = {}
     cfg = preset(args.preset)
     if args.ckpt:
         try:
-            ckpt_cfg, variables = load_msgpack_ckpt(args.ckpt)
+            ckpt_cfg, loaded = load_checkpoint(args.ckpt)
         except ValueError as e:
             raise SystemExit(str(e))
         cfg = ckpt_cfg or cfg
-        log.info("loaded variables%s from %s",
+        log.info("loaded %s%s from %s", next(iter(loaded)),
                  "" if ckpt_cfg is None else " + config", args.ckpt)
     cfg = cfg.override(**parse_overrides(getattr(args, "set")))
     if cfg.matching.decode == "hungarian" and not args.per_frame:
@@ -121,7 +126,12 @@ def main(argv=None):
         seqs = args.sequences or ds.videos
         if not seqs:
             raise SystemExit(f"no videos found under {args.ytvos_root}")
-    engine = InferenceEngine(cfg, variables=variables,
+    model = None
+    if "state_dict" in loaded:
+        model = DMMNet(cfg, device=args.device)
+        model.load_state_dict(loaded["state_dict"])
+    engine = InferenceEngine(cfg, model=model,
+                             variables=loaded.get("variables"),
                              update_templates=not args.no_template_update,
                              device=args.device)
 

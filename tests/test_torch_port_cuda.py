@@ -341,3 +341,68 @@ def test_cuda_engine_takes_staged_items(cuda_kernels):
     assert _build.launch_counts()["fused_resolve_upsample"] == len(items)
     for k in ("labels", "assignments"):
         assert (got[k] == want[k]).all(), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("epsilon,eps_init", [(0.1, None), (0.03, 0.2)])
+def test_cuda_b1_backward_matches_plain(cuda_kernels, epsilon, eps_init):
+    """B1' on the card at the CPU tests' shapes (B=2, M=4, N=16, P=64, D=32,
+    Pc=256): X and the five gradients of the kernel-forward Function equal
+    autograd through the plain version; one launch and one backward
+    counted."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    arrs = _matcher_problem(gen, 2, 4, 16, 64, 32, 256)
+    W = torch.randn(2, 4, 16, device="cuda", generator=gen)
+    out = {}
+    for name, fn in (("kernel", fused_pool_cost_match),
+                     ("plain", pool_cost_match_plain)):
+        xs = [a.clone().requires_grad_(True) for a in arrs[:5]]
+        _build.reset_launch_counts()
+        X = fn(*xs, *arrs[5:], epsilon=epsilon, iters=30, epsilon_init=eps_init)
+        (X * W).sum().backward()
+        out[name] = (X.detach(), [x.grad for x in xs], _build.launch_counts(),
+                     _build.backward_calls())
+    (Xk, gk, ck, bk), (Xp, gp, _, _) = out["kernel"], out["plain"]
+    assert (Xk - Xp).abs().max().item() <= 2e-4
+    for a, b in zip(gk, gp):
+        assert b.abs().max() > 0
+        assert (a - b).abs().max().item() <= 1e-5 + 1e-4 * b.abs().max().item()
+    assert ck["fused_pool_cost_match"] == 1
+    assert bk["fused_pool_cost_match"] == 1
+
+
+@pytest.mark.cuda
+def test_cuda_train_step_matches_cpu(cuda_kernels):
+    """A tiny float32 train step on the fused path (R-18 64x64, M=4, N=8,
+    B=2, T=3, train-mode BN, remat) on the card and on the CPU from the same
+    seed: loss, every gradient leaf and the running statistics to 1e-4."""
+    from dmm_net_tpu_torch.config import preset
+    from dmm_net_tpu_torch.data.synthetic import synthetic_clip_batch
+    from dmm_net_tpu_torch.train.loop import (_clip_forward, batch_to,
+                                              create_train_state)
+    cfg = preset("p5_train").override(**{
+        "model.backbone": "resnet18", "model.backbone_dtype": "float32",
+        "model.image_size": (64, 64), "model.feature_dim": 32,
+        "model.decoder_dim": 16, "model.train_bn": True,
+        "matching.max_templates": 4, "matching.max_proposals": 8,
+        "matching.use_pallas": True, "train.remat": True})
+    batch = synthetic_clip_batch(seed=0, batch=2, T=3, H=64, W=64,
+                                 num_objects=2, num_proposals=8, pad_objects=4)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        state = create_train_state(cfg, seed=0, device=dev)
+        loss, _ = _clip_forward(state.model, batch_to(batch, dev), cfg)
+        params = list(state.model.parameters())
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        res[dev] = (loss.item(), [None if g is None else g.cpu() for g in grads],
+                    {k: v.cpu() for k, v in state.model.state_dict().items()
+                     if "running" in k})
+    (lc, gc, sc), (lh, gh, sh) = res["cuda"], res["cpu"]
+    assert abs(lc - lh) <= 1e-4 * abs(lh)
+    for a, b in zip(gc, gh):
+        if b is None:
+            assert a is None
+            continue
+        assert (a - b).abs().max() <= 1e-4 * b.abs().max() + 1e-9
+    for k in sh:
+        torch.testing.assert_close(sc[k], sh[k], rtol=1e-4, atol=1e-5)

@@ -172,12 +172,14 @@ def test_port_imports_no_jax():
             "for m in pkgutil.walk_packages(dmm_net_tpu_torch.__path__, "
             "'dmm_net_tpu_torch.'):\n"
             "    importlib.import_module(m.name)\n"
-            "import infer_torch\n"
+            "import infer_torch, train_torch\n"
             "import importlib.util as u\n"
-            "s = u.spec_from_file_location('x', 'tools/extract_proposals_torch.py')\n"
-            "s.loader.exec_module(u.module_from_spec(s))\n"
+            "for f in ('tools/extract_proposals_torch.py',\n"
+            "          'examples/train_and_eval_synthetic_torch.py'):\n"
+            "    s = u.spec_from_file_location('x', f)\n"
+            "    s.loader.exec_module(u.module_from_spec(s))\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'dmm_net_tpu')]\n"
+            "('jax', 'jaxlib', 'flax', 'optax', 'cv2', 'dmm_net_tpu')]\n"
             "assert not bad, bad\n"
             "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -188,11 +190,13 @@ def test_port_imports_no_jax():
 
 
 def test_port_sources_never_name_jax():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax)\b"
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|cv2)\b"
                          r"|\bdmm_net_tpu\.|from\s+dmm_net_tpu\s+import",
                          re.MULTILINE)
     files = sorted(_PKG.rglob("*.py")) + [
         _ROOT / "chip_smoke.py", _ROOT / "infer_torch.py",
+        _ROOT / "train_torch.py",
+        _ROOT / "examples" / "train_and_eval_synthetic_torch.py",
         _ROOT / "tools" / "extract_proposals_torch.py"]
     assert len(files) >= 28
     for f in files:
