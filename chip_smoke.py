@@ -82,15 +82,37 @@ Phases, each fatal on failure:
      under a bound on the last step's loss;
   8. run a small float32 configuration on the card and on the CPU (plain
      versions only) with the same weights and inputs, and compare; the
-     same for a small detector (R-18, 64x128, 8 classes).
+     same for a small detector (R-18, 64x128, 8 classes);
+  9. the detector's training, scoring, the full system and DCNv2: (9a) B4'
+     (multilevel_roi_align's autograd.Function: the kernel forward,
+     autograd through the plain version backward) on a 256x448 R-50-FPN
+     pyramid at K=32 and K=128, both heads, forward and the four level
+     gradients against autograd through the plain version, device ms per
+     backward; (9b) train_proposal_torch.py at full width (R-50-FPN, 81
+     classes, 256x448, batch 2, 8 steps, seeded random weights) with B4 2 x
+     batch launches and B4' 2 x batch backward calls per step, every loss
+     part finite, ms per step, peak memory, one profiled step, and the saved
+     file served by tools/extract_proposals_torch.py --params; (9c) the
+     small detector's 3 train steps against the JAX package's
+     (JAX_PROPOSAL_STEPS, recomputed by
+     tests/test_torch_port_detector_train.py) and the card's CPU to 1e-4;
+     (9d) the learning proof: R-18 at 128x224 for 800 steps on synthetic
+     detection frames, box and mask AP50 on 32 held-out frames over floors
+     set by the JAX package's CPU runs; (9e)
+     examples/full_system_synthetic_torch.py with the checkpoint and 9d's
+     detector on 4 held-out videos, as saved and on the kernels: planted J&F
+     against the JAX package's, detector recall and J&F over floors; (9f) a
+     full-width DCNv2 detector (c3..c5) forward and train steps, and a small
+     one card vs CPU.
 
-PIL is required (phases 5d, 6 and 7 read and write image trees). Prints one
-JSON line {"kernels": [...]} with each kernel's launches (on the p3 stream
-and the detector; ``launches_by_path`` for every path that runs it), error,
-time, plain-version time and bound (B1's entry carries B1', its backward,
-under ``backward``: autograd through the plain version, counted in calls
-since it has no kernel of its own), then the nvidia-smi line, then
-{"ok": true, "device": {...}} as the last line. Imports nothing of JAX.
+PIL is required (phases 5d, 6, 7 and 9 read and write image trees). Prints
+one JSON line {"kernels": [...]} with each kernel's launches (on the p3
+stream and the detector; ``launches_by_path`` for every path that runs it),
+error, time, plain-version time and bound (B1's entry carries B1' and B4's
+carries B4', their backwards, under ``backward``: autograd through the plain
+version, counted in calls since they have no kernel of their own), then the
+nvidia-smi line, then {"ok": true, "device": {...}} as the last line.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -1755,6 +1777,450 @@ def example_path():
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the detector's training (B4 forward + B4' backward), its scoring,
+# the full system and DCNv2
+# ---------------------------------------------------------------------------
+
+# Phase 9c: 3 train steps of the small detector (R-18, 64x128, 8 classes,
+# train_proposal.py's top-n) from the port's seeded weights, batch 2, on
+# synthetic_detection_frame seeds 0-5. JAX_PROPOSAL_STEPS holds the JAX
+# package's per-step loss and grad norm from the same weights (its train
+# step on the CPU); tests/test_torch_port_detector_train.py recomputes them.
+PROPOSAL_STEPS = dict(detector=dict(image_size=(64, 128), backbone_name="resnet18",
+                                    num_classes=8, pre_nms_top_n=64,
+                                    post_nms_top_n=32, max_detections=16),
+                      seed=3, seeds=(0, 1, 2, 3, 4, 5), batch=2, lr=1e-4)
+JAX_PROPOSAL_STEPS = {"loss": [7.766317367553711, 8.637356758117676,
+                               5.590882301330566],
+                      "grad_norm": [55.98398971557617, 53.99751663208008,
+                                    65.79955291748047]}
+
+
+def proposal_batches(frames):
+    """synthetic_detection_frame dicts -> detection batches of
+    PROPOSAL_STEPS["batch"] (the JAX package's batch layout, numpy)."""
+    from dmm_net_tpu_torch.train.proposal_loop import stack_detection_frames
+    B = PROPOSAL_STEPS["batch"]
+    return [stack_detection_frames(frames[i:i + B]) for i in range(0, len(frames), B)]
+
+
+def proposal_train_steps(device):
+    """The port's 3 train steps of phase 9c on ``device``: per-step loss
+    and grad norm."""
+    from dmm_net_tpu_torch.data.synthetic import synthetic_detection_frame
+    from dmm_net_tpu_torch.models.proposal import MaskRCNN
+    from dmm_net_tpu_torch.train.proposal_loop import (make_proposal_optimizer,
+                                                       make_proposal_train_step,
+                                                       proposal_batch_to)
+    det = PROPOSAL_STEPS["detector"]
+    H, W = det["image_size"]
+    frames = [synthetic_detection_frame(seed=s, H=H, W=W, max_objects=4,
+                                        num_classes=det["num_classes"])
+              for s in PROPOSAL_STEPS["seeds"]]
+    model = MaskRCNN(**det, device=device, seed=PROPOSAL_STEPS["seed"]).trainable_()
+    step = make_proposal_train_step(
+        model, make_proposal_optimizer(model, PROPOSAL_STEPS["lr"]))
+    out = {"loss": [], "grad_norm": []}
+    for batch in proposal_batches(frames):
+        m = step(proposal_batch_to(batch, device))
+        for k in out:
+            out[k].append(float(m[k]))
+    return out
+
+
+def b4_backward_check():
+    """Phase 9a: B4' (multilevel_roi_align's autograd.Function: B4's kernel
+    forward, autograd through the plain version backward) at the
+    full-width detector's shapes: a 256x448 R-50-FPN pyramid (C=256), K=32
+    proposals (train_proposal.py's post-NMS top-n) and K=128, both heads.
+    The forward against the plain version (1e-4 + 1e-4 |want|), the four
+    level gradients of a seeded upstream gradient against autograd through
+    the plain version (1e-4 relative), one backward call counted per
+    backward; device ms per backward (torch.profiler), its bound and the
+    plain backward's time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from dmm_net_tpu_torch.kernels import backward_calls, reset_launch_counts
+    from dmm_net_tpu_torch.kernels.roi_align import (multilevel_roi_align,
+                                                     multilevel_roi_align_plain)
+    out = {}
+    for K in (32, 128):
+        for head, size in (("box", (7, 7)), ("mask", (14, 14))):
+            gen = torch.Generator(device="cuda").manual_seed(40 + K + size[0])
+            levels, boxes = pyramid(gen), detector_boxes(gen, K, 256, 448)
+            g = torch.randn(K, 256, *size, device="cuda", generator=gen)
+
+            def run(fn):
+                xs = [t.clone().requires_grad_(True) for t in levels]
+                y = fn(xs, boxes, size, 2)
+                return y, torch.autograd.grad(y, xs, g)
+
+            reset_launch_counts()
+            (yk, gk), (yp, gp) = run(multilevel_roi_align), \
+                run(multilevel_roi_align_plain)
+            calls = backward_calls()["roi_align"]
+            name = f"{head} head K={K} -> {size[0]}x{size[1]}"
+            err = roi_compare(f"B4' forward, {name}", yk, yp)
+            g_abs = [(a - b).abs().max().item() for a, b in zip(gk, gp)]
+            g_err = [e / max(b.abs().max().item(), 1e-30) for e, b in zip(g_abs, gp)]
+            log(f"B4' backward, {name}: max|dgrad| / max|grad| per level p2..p5 "
+                + ", ".join(f"{e:.3e}" for e in g_err) + f" (limit 1e-4), max|dgrad| "
+                f"{max(g_abs):.3e}; {calls} backward call counted")
+            if max(g_err) > 1e-4 or calls != 1 or not all(
+                    torch.isfinite(t).all() for t in gk):
+                fail(f"B4' gradients disagree with autograd through the plain "
+                     f"version, or {calls} backward calls counted, at {name}")
+
+            def timed(fn, n=20):
+                """Device ms per backward (the kernels inside its span)."""
+                run(fn)
+                leaves = [[t.clone().requires_grad_(True) for t in levels]
+                          for _ in range(n)]
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CPU,
+                                         ProfilerActivity.CUDA]) as prof:
+                    for xs in leaves:
+                        y = fn(xs, boxes, size, 2)
+                        torch.cuda.synchronize()
+                        with torch.profiler.record_function("b4_backward"):
+                            torch.autograd.grad(y, xs, g)
+                            torch.cuda.synchronize()
+                spans = [e.time_range for e in prof.events()
+                         if e.name == "b4_backward" and e.device_type != DeviceType.CUDA]
+                if len(spans) != n:
+                    fail(f"B4' timing: {len(spans)} backward spans, not {n}")
+                us = sum(e.time_range.elapsed_us() for e in prof.events()
+                         if e.device_type == DeviceType.CUDA
+                         and e.name != "b4_backward"
+                         and not getattr(e, "is_user_annotation", False)
+                         and any(sp.start <= e.time_range.start <= sp.end
+                                 for sp in spans))
+                return us / 1e3 / n
+
+            ms, plain = timed(multilevel_roi_align), timed(multilevel_roi_align_plain)
+            # bytes: the upstream gradient and the boxes read, the four level
+            # gradients written once (ROI-Align is linear in the levels, so
+            # its gradient never reads them); operations: each output cell's
+            # gradient added into its 4 taps of s x s samples on the box's own
+            # level (as B4's forward is counted)
+            byts = nbytes(g, boxes, *levels)
+            ops = 10 * K * 256 * size[0] * size[1] * 2 * 2
+            b_ms, b_by = bound_ms(byts, ops)
+            log(f"B4' time, {name}: backward {ms:.4f} ms on the device (the "
+                f"plain recompute on all 4 levels and its VJP), plain backward "
+                f"alone {plain:.4f} ms; bound {b_ms:.4f} ms ({b_by}: "
+                f"{byts / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP)")
+            out[(K, head)] = {"forward_max_abs_err": err, "max_abs_err": max(g_abs),
+                              "grad_rel_err": max(g_err),
+                              "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                              "bound_by": b_by}
+    per_image = {k: out[(32, "box")][k] + out[(32, "mask")][k]
+                 for k in ("ms", "plain_ms", "bound_ms")}
+    log(f"B4' per train image (K=32, box + mask head, 2 backward calls): "
+        f"{per_image['ms']:.4f} ms, plain {per_image['plain_ms']:.4f} ms, bound "
+        f"{per_image['bound_ms']:.4f} ms")
+    return out, per_image
+
+
+# Phase 9b: train_proposal_torch.py at the full width of the repo's
+# R-50-FPN Mask R-CNN; depth cut to 8 steps (set-up cut to 16 frames).
+R50_TRAIN = ["--backbone", "resnet50", "--image-size", "256", "448",
+             "--num-classes", "81", "--batch", "2", "--steps", "8",
+             "--distinct-frames", "16", "--device", "cuda"]
+
+
+def proposal_train_path(tmp):
+    """Phase 9b: R50_TRAIN with --save, counters set to 0 just before and
+    read just after (B4 2 x batch launches per step, B4' 2 x batch backward
+    calls), every loss part finite, ms per step (median of steps 2-8),
+    peak memory, one profiled step; then tools/extract_proposals_torch.py
+    --params on the saved file over a one-video DAVIS tree (B4 twice per
+    frame)."""
+    import importlib
+    import torch
+    from dmm_net_tpu_torch.kernels import (backward_calls, launch_counts,
+                                           reset_launch_counts)
+    from dmm_net_tpu_torch.train.proposal_loop import (make_proposal_optimizer,
+                                                       make_proposal_train_step,
+                                                       proposal_batch_to,
+                                                       stack_detection_frames)
+    train = importlib.import_module("train_proposal_torch")
+    save = tmp / "r50_mrcnn.msgpack"
+    steps, B = 8, 2
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    r = train.main([*R50_TRAIN, "--save", str(save), "--logdir", str(tmp / "r50")])
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    counts, bwd = launch_counts(), backward_calls()["roi_align"]
+    hist = r["history"]
+    parts = ("rpn_cls", "rpn_reg", "box_cls", "box_reg", "mask", "total", "grad_norm")
+    if not all(np.isfinite(h[k]) for h in hist for k in parts):
+        fail(f"R-50 detector training: a loss part is not finite: {hist}")
+    times = 1e3 * np.diff(r["step_times"])
+    log(f"R-50-FPN detector training (81 classes, 256x448, batch {B}, {steps} "
+        f"steps): total loss {['%.4f' % h['total'] for h in hist]}, ms per step "
+        f"{['%.1f' % t for t in times]} (median {np.median(times):.1f}), peak "
+        f"memory {peak / 2**30:.2f} GiB, launches {counts}, B4' backward calls {bwd}")
+    expect_launches("R-50 detector training", counts,
+                    {"roi_align": 2 * B * steps, "fused_pool_cost_match": 0})
+    if bwd != 2 * B * steps:
+        fail(f"R-50 detector training: {bwd} B4' backward calls, expected "
+             f"{2 * B * steps}")
+    model = r["model"]
+    sample = train.make_sampler("detection", 256, 448, 4, 81)
+    batch = proposal_batch_to(stack_detection_frames(
+        [sample(900 + j) for j in range(B)]), "cuda")
+    step = make_proposal_train_step(model, make_proposal_optimizer(model, 1e-4))
+    step(batch)
+    prof = profiled("R-50 detector profiled train step", "step", 1,
+                    lambda: step(batch), ranges="detector/")
+
+    root = write_davis_tree(tmp / "DAVIS_det", train_seeds=(), val_seeds=(7501,),
+                            T=4, hw=(256, 448))
+    extract = load_tool("extract_proposals_torch")
+    reset_launch_counts()
+    extract.main(["--root", str(root), "--out", str(tmp / "props_det"),
+                  "--params", str(save), "--score-thresh", "0"])
+    ex_counts = launch_counts()
+    files = sorted((tmp / "props_det").glob("*/*.json"))
+    n_props = [len(json.loads(f.read_text())) for f in files]
+    log(f"extract_proposals_torch.py --params (the trained R-50 file): "
+        f"{len(files)} frames, proposals per frame {n_props}, launches {ex_counts}")
+    if len(files) != 4 or not all(n_props) or ex_counts["roi_align"] != 8:
+        fail("the trained detector's file did not serve extract_proposals_torch.py")
+    return counts, bwd, ex_counts, {
+        "losses": [h["total"] for h in hist], "ms_per_step": list(times),
+        "ms_per_step_median": float(np.median(times)), "peak_gib": peak / 2**30,
+        "busy": 1 - prof["idle"], "profile": prof}
+
+
+def proposal_steps_path():
+    """Phase 9c: the small detector's 3 train steps on the card and on the
+    card's CPU against JAX_PROPOSAL_STEPS, each to 1e-4 relative."""
+    from dmm_net_tpu_torch.kernels import (backward_calls, launch_counts,
+                                           reset_launch_counts)
+    reset_launch_counts()
+    card = proposal_train_steps("cuda")
+    counts, bwd = launch_counts(), backward_calls()["roi_align"]
+    cpu = proposal_train_steps("cpu")
+    for k in ("loss", "grad_norm"):
+        want = JAX_PROPOSAL_STEPS[k]
+        d_jax = max(abs(a - b) / abs(b) for a, b in zip(card[k], want))
+        d_cpu = max(abs(a - b) / abs(b) for a, b in zip(card[k], cpu[k]))
+        log(f"detector train steps: {k} card {['%.6f' % x for x in card[k]]}, JAX "
+            f"{['%.6f' % x for x in want]} (max rel {d_jax:.2e}), card vs CPU max "
+            f"rel {d_cpu:.2e} (limits 1e-4)")
+        if d_jax > 1e-4 or d_cpu > 1e-4:
+            fail(f"detector train steps: {k} off by {d_jax:.2e} from JAX, "
+                 f"{d_cpu:.2e} from the CPU")
+    n = 2 * PROPOSAL_STEPS["batch"] * 3
+    expect_launches("detector train steps", counts, {"roi_align": n})
+    if bwd != n:
+        fail(f"detector train steps: {bwd} B4' backward calls, expected {n}")
+    return card, counts, bwd
+
+
+# Phase 9d: the learning proof, train_proposal_torch.py at R-18 128x224 on
+# the detection frames from the port's seeded init (seed 0). The floors come
+# from the JAX package's train_proposal.py on the CPU with the same flags
+# from the same initial weights (the port's --steps 0 --save, passed to its
+# --init), seeds 0 and 1: box AP50 0.3179 / 0.2736, mask AP50 0.3096 /
+# 0.2736 (PERF.md, section 6, the floors); the untrained detector (--steps 0)
+# scores at most 0.0005. Each floor lies halfway between the untrained
+# score and the lower run, rounded down: training from scratch is chaotic,
+# one init's float32 trajectories part within steps.
+LEARN_ARGS = ["--backbone", "resnet18", "--image-size", "128", "224",
+              "--data", "detection", "--num-classes", "3", "--eval-images", "32",
+              "--steps", "800", "--seed", "0", "--device", "cuda"]
+LEARN_FLOORS = {"box_AP50": 0.13, "mask_AP50": 0.13}
+
+
+def learning_path(tmp):
+    """Phase 9d: LEARN_ARGS with --save; box and mask AP50 over the floors;
+    B4 and B4' counted (2 launches and 2 backward calls per train image, 2
+    launches per eval image)."""
+    import importlib
+    import torch
+    from dmm_net_tpu_torch.kernels import (backward_calls, launch_counts,
+                                           reset_launch_counts)
+    train = importlib.import_module("train_proposal_torch")
+    save = tmp / "r18_mrcnn.msgpack"
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    r = train.main([*LEARN_ARGS, "--save", str(save), "--logdir", str(tmp / "r18")])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts, bwd = launch_counts(), backward_calls()["roi_align"]
+    steps = int(LEARN_ARGS[LEARN_ARGS.index("--steps") + 1])
+    times = 1e3 * np.diff(r["step_times"])
+    box, mask = r["box_ap"], r["mask_ap"]
+    log(f"learning proof (R-18 128x224, 3 classes, {steps} steps, seed 0): "
+        f"box AP50 {box['AP50']:.4f} mAP {box['mAP']:.4f}, mask AP50 "
+        f"{mask['AP50']:.4f} mAP {mask['mAP']:.4f} on 32 held-out frames "
+        f"(floors {LEARN_FLOORS}); last total loss {r['history'][-1]['total']:.4f}; "
+        f"median {np.median(times):.1f} ms per step, {secs:.1f} s in all; "
+        f"launches {counts}, B4' backward calls {bwd}")
+    expect_launches("learning proof", counts, {"roi_align": 2 * steps + 2 * 32})
+    if bwd != 2 * steps:
+        fail(f"learning proof: {bwd} B4' backward calls, expected {2 * steps}")
+    if not (box["AP50"] > LEARN_FLOORS["box_AP50"]
+            and mask["AP50"] > LEARN_FLOORS["mask_AP50"]):
+        fail(f"learning proof: AP50 box {box['AP50']:.4f} / mask "
+             f"{mask['AP50']:.4f} not above the floors {LEARN_FLOORS}")
+    return save, counts, bwd, {"box_ap": box, "mask_ap": mask,
+                               "ms_per_step_median": float(np.median(times)),
+                               "seconds": secs,
+                               "final_loss": r["history"][-1]["total"]}
+
+
+# Phase 9e: examples/full_system_synthetic_torch.py with the git-tracked DMM
+# checkpoint and 9d's detector on 4 held-out videos (seeds 5000-5003, 8
+# frames), as saved and on the kernels (CKPT_RUNS). JAX_FULL_SYSTEM_PLANTED_JF
+# is the JAX package's planted-proposal J&F on the same videos and weights
+# (examples/full_system_synthetic.py as saved; its engine with the kernel
+# run's overrides), recomputed by tests/test_torch_port_detector_system.py.
+# The floors come from the JAX example on the CPU with 9d's two JAX-trained
+# detectors: recall@0.5 1.000 / 1.000, detector J&F 0.839 / 0.870; with
+# their untrained inits: recall 0.000 / 0.000, J&F 0.352 / 0.029 (PERF.md,
+# section 6, the floors). Each floor lies halfway between the better untrained
+# score and the lower trained one, rounded down.
+FULL_SYSTEM_ARGS = ["--eval-seqs", "4", "--frames", "8", "--device", "cuda"]
+JAX_FULL_SYSTEM_PLANTED_JF = {"as_saved": 0.9712825323880612,
+                              "kernels": 0.9684382930147375}
+FULL_SYSTEM_FLOORS = {"recall": 0.5, "jf_detector": 0.59}
+
+
+def full_system_path(mrcnn):
+    """Phase 9e: the example as saved and on the kernels: planted J&F
+    within 0.01 of the JAX package's, detector recall and J&F over the
+    floors, B4 twice per detector frame, B1 and B2 once per frame step on
+    the kernels."""
+    import importlib.util
+    from dmm_net_tpu_torch.kernels import launch_counts, reset_launch_counts
+    spec = importlib.util.spec_from_file_location(
+        "full_system_synthetic_torch", ROOT / "examples" / "full_system_synthetic_torch.py")
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    n_seq, T = 4, 8
+    out, launches = {}, {}
+    for run in CKPT_RUNS:
+        reset_launch_counts()
+        try:
+            r = example.main(["--dmm", str(ROOT / CKPT), "--mrcnn", str(mrcnn),
+                              *FULL_SYSTEM_ARGS, "--set", *ckpt_sets(run)])
+        except SystemExit as e:
+            fail(f"examples/full_system_synthetic_torch.py {run} exited {e.code}")
+        n = 0 if run == "as_saved" else 2 * n_seq * T    # detector + planted
+        launches[run] = expect_launches(
+            f"full system {run}", launch_counts(),
+            {"roi_align": 2 * n_seq * T, "fused_pool_cost_match": n,
+             "fused_resolve_upsample": n})
+        out[run] = {k: r[k] for k in ("recall", "jf_detector", "jf_planted")}
+        d = abs(r["jf_planted"] - JAX_FULL_SYSTEM_PLANTED_JF[run])
+        log(f"full system {run}: planted J&F {r['jf_planted']:.6f} (JAX package "
+            f"{JAX_FULL_SYSTEM_PLANTED_JF[run]:.6f}, |d| {d:.2e}, limit 0.01), "
+            f"detector recall@0.5 {r['recall']:.4f} and J&F {r['jf_detector']:.4f} "
+            f"(floors {FULL_SYSTEM_FLOORS})")
+        if not (d <= 0.01 and r["recall"] > FULL_SYSTEM_FLOORS["recall"]
+                and r["jf_detector"] > FULL_SYSTEM_FLOORS["jf_detector"]):
+            fail(f"full system {run}: planted J&F off JAX's, or recall / "
+                 f"detector J&F not above the floors: {out[run]}")
+    return out, launches
+
+
+def dcn_path():
+    """Phase 9f: DCNv2. (i) The full-width detector (R-50-FPN, 81 classes,
+    256x448) with deform_stages c3..c5 and seeded non-zero offset
+    predictors: one forward and train steps at batch 2, every loss part
+    finite, ms per step and peak memory. (ii) The small DCN detector (R-18,
+    64x128, 8 classes) on the same weights and inputs on the card and on
+    its CPU: the same detections and the same loss to 1e-4."""
+    import torch
+    from dmm_net_tpu_torch.data.synthetic import synthetic_detection_frame
+    from dmm_net_tpu_torch.kernels import (backward_calls, launch_counts,
+                                           reset_launch_counts)
+    from dmm_net_tpu_torch.models.proposal import MaskRCNN
+    from dmm_net_tpu_torch.train.proposal_loop import (make_proposal_batch_loss,
+                                                       make_proposal_optimizer,
+                                                       make_proposal_train_step,
+                                                       proposal_batch_to)
+    stages = ("c3", "c4", "c5")
+
+    def build(device, **kw):
+        det = MaskRCNN(deform_stages=stages, device=device, seed=8, **kw)
+        gen = torch.Generator().manual_seed(9)
+        with torch.no_grad():
+            for name, p in det.named_parameters():
+                if ".offset_conv." in name:
+                    p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+        return det
+
+    def batch_of(H, W, C, seeds, device):
+        frames = [synthetic_detection_frame(seed=s, H=H, W=W, max_objects=4,
+                                            num_classes=C) for s in seeds]
+        return proposal_batch_to(proposal_batches(frames)[0], device)
+
+    det = build("cuda", pre_nms_top_n=64, post_nms_top_n=32, max_detections=16)
+    batch = batch_of(256, 448, 81, (11, 12), "cuda")
+    out = det(batch["images"][:1].permute(0, 3, 1, 2))
+    if not all(torch.isfinite(v.float()).all() for v in out.values()):
+        fail("DCN detector forward: outputs not finite")
+    det.trainable_()
+    step = make_proposal_train_step(det, make_proposal_optimizer(det, 1e-4))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    stamps, hist = [], []
+    for _ in range(4):
+        m = step(batch)
+        hist.append({k: float(v) for k, v in m.items()})
+        stamps.append(time.perf_counter())
+    peak = torch.cuda.max_memory_allocated()
+    counts, bwd = launch_counts(), backward_calls()["roi_align"]
+    times = 1e3 * np.diff(stamps)
+    log(f"DCN R-50-FPN detector (c3..c5 deformable, 81 classes, 256x448, batch "
+        f"2): losses {['%.4f' % h['loss'] for h in hist]}, ms per step "
+        f"{['%.1f' % t for t in times]} (median {np.median(times):.1f}), peak "
+        f"memory {peak / 2**30:.2f} GiB, launches {counts}, B4' backward calls {bwd}")
+    if not all(np.isfinite(v) for h in hist for v in h.values()):
+        fail(f"DCN detector training: a loss part is not finite: {hist}")
+    expect_launches("DCN detector training", counts, {"roi_align": 16})
+    if bwd != 16:
+        fail(f"DCN detector training: {bwd} B4' backward calls, expected 16")
+
+    small = dict(image_size=(64, 128), backbone_name="resnet18", num_classes=8,
+                 pre_nms_top_n=64, post_nms_top_n=32, max_detections=16)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        d = build(dev, **small)
+        b = batch_of(64, 128, 8, (0, 1), dev)
+        with torch.no_grad():
+            o = d(b["images"][:1].permute(0, 3, 1, 2))
+        d.trainable_()
+        loss, _ = make_proposal_batch_loss(d)(b)
+        res[dev] = ({k: v.cpu().numpy() for k, v in o.items()}, float(loss))
+    (a, la), (c, lc) = res["cuda"], res["cpu"]
+    errs = {k: float(np.abs(a[k] - c[k]).max()) for k in ("boxes", "scores", "masks")}
+    same = bool((a["valid"] == c["valid"]).all() and (a["classes"] == c["classes"]).all())
+    rel = abs(la - lc) / abs(lc)
+    log(f"small DCN detector (R-18 64x128, 8 classes): card vs CPU valid/classes "
+        f"equal={same} ({int(c['valid'].sum())} valid), max|d| boxes "
+        f"{errs['boxes']:.3e} (limit 1e-3), scores {errs['scores']:.3e} (1e-4), "
+        f"masks {errs['masks']:.3e} (1e-4); loss {la:.6f} vs {lc:.6f} (rel "
+        f"{rel:.2e}, limit 1e-4)")
+    if not (same and c["valid"].any() and errs["boxes"] <= 1e-3
+            and errs["scores"] <= 1e-4 and errs["masks"] <= 1e-4 and rel <= 1e-4):
+        fail("card and CPU disagree on the small DCN detector")
+    return counts, bwd, {"losses": [h["loss"] for h in hist],
+                         "ms_per_step": list(times),
+                         "ms_per_step_median": float(np.median(times)),
+                         "peak_gib": peak / 2**30, "small_loss_rel": rel}
+
+
 def main() -> int:
     if not (ROOT / "dmm_net_tpu_torch" / "csrc").is_dir():
         fail("dmm_net_tpu_torch/ not found next to chip_smoke.py; run it from "
@@ -1829,6 +2295,14 @@ def main() -> int:
                                   (14, 14), K=64, timed=False)
     small_reference()
     small_detector_reference()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        b4_bwd, b4_bwd_image = b4_backward_check()
+        r50_counts, r50_bwd, r50_extract_counts, r50 = proposal_train_path(tmp)
+        steps9c, steps9c_counts, steps9c_bwd = proposal_steps_path()
+        learn_file, learn_counts, learn_bwd, learn = learning_path(tmp)
+        system, system_launches = full_system_path(learn_file)
+    dcn_counts, dcn_bwd, dcn = dcn_path()
 
     def by_path(k):
         return {"p3_stream": counts[k], "legacy_p3": legacy_launches[k],
@@ -1838,7 +2312,8 @@ def main() -> int:
                 "ytvos_p4": p4_launches[k],
                 "ytvos_ckpt_kernels": yt_launches["kernels"][k],
                 "p5_train": p5_counts[k],
-                "ckpt_train_kernels": ckpt_train_launches["kernels"][k]}
+                "ckpt_train_kernels": ckpt_train_launches["kernels"][k],
+                "full_system_kernels_9e": system_launches["kernels"][k]}
 
     kernels = [
         dict(name="fused_pool_cost_match", route="cuda",
@@ -1884,9 +2359,37 @@ def main() -> int:
              launches=det_counts["roi_align"],
              shape="per detector image: box head K=128 -> 7x7 + mask head "
                    "K=128 -> 14x14, C=256, 256x448 pyramid",
-             path="detector (phases 4b and 6a); 2 launches per detector image",
+             path="detector (phases 4b, 6a and 9); 2 launches per detector image",
              launches_by_path={"detector_4b": det_counts["roi_align"],
-                               "extract_proposals": ex_counts["roi_align"]},
+                               "extract_proposals": ex_counts["roi_align"],
+                               "r50_train_9b": r50_counts["roi_align"],
+                               "r50_extract_9b": r50_extract_counts["roi_align"],
+                               "train_steps_9c": steps9c_counts["roi_align"],
+                               "learning_9d": learn_counts["roi_align"],
+                               **{f"full_system_{k}_9e": v["roi_align"]
+                                  for k, v in system_launches.items()},
+                               "dcn_9f": dcn_counts["roi_align"]},
+             # B4' has no kernel of its own: its numbers ride on B4's entry
+             backward=dict(
+                 name="B4' (_MultilevelRoiAlign.backward)",
+                 route="autograd through multilevel_roi_align_plain",
+                 source="dmm_net_tpu_torch/kernels/roi_align.py",
+                 replaces="dmm_net_tpu/models/proposal/maskrcnn.py:96",
+                 calls=r50_bwd,
+                 calls_by_path={"r50_train_9b": r50_bwd, "train_steps_9c": steps9c_bwd,
+                                "learning_9d": learn_bwd, "dcn_9f": dcn_bwd},
+                 shape="per train image: box head K=32 -> 7x7 + mask head K=32 "
+                       "-> 14x14, C=256, 256x448 pyramid",
+                 note="ms: the backward alone (the plain recompute on all four "
+                      "levels and its VJP) after B4's kernel forward; "
+                      "plain_ms: the backward of a plain forward",
+                 library_ms=None,
+                 max_abs_err=max(r["max_abs_err"] for r in b4_bwd.values()),
+                 grad_rel_err=max(r["grad_rel_err"] for r in b4_bwd.values()),
+                 heads={f"K={k} {h}": r for (k, h), r in b4_bwd.items()},
+                 bound_by=("bytes" if all(r["bound_by"] == "bytes"
+                                          for r in b4_bwd.values()) else "operations"),
+                 **b4_bwd_image),
              max_abs_err=max(b4["box"]["max_abs_err"], b4["mask"]["max_abs_err"],
                              b4_extract),
              single_level_max_abs_err=b4_single,
@@ -1906,7 +2409,16 @@ def main() -> int:
                       "jax_ytvos_g": JAX_YTVOS_G, "p5_train": {
                           k: v for k, v in p5.items() if k != "profile"},
                       "ckpt_train": ckpt_train, "jax_train_steps": JAX_TRAIN_STEPS,
-                      "example": example}), flush=True)
+                      "example": example,
+                      "detector_train_r50": {k: v for k, v in r50.items()
+                                             if k != "profile"},
+                      "detector_train_steps": steps9c,
+                      "jax_proposal_steps": JAX_PROPOSAL_STEPS,
+                      "detector_learning": learn, "learn_floors": LEARN_FLOORS,
+                      "full_system": system,
+                      "jax_full_system_planted_jf": JAX_FULL_SYSTEM_PLANTED_JF,
+                      "full_system_floors": FULL_SYSTEM_FLOORS,
+                      "dcn": dcn}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

@@ -37,9 +37,10 @@ _LAUNCHES: Dict[str, int] = {"fused_pool_cost_match": 0,
                              "fused_resolve_upsample": 0,
                              "fused_cost_match": 0,
                              "roi_align": 0}
-# Calls of B1's backward on CUDA (kernels/matcher.py): autograd through the
-# plain version, with no kernel of its own, so counted apart from launches.
-_BACKWARD_CALLS: Dict[str, int] = {"fused_pool_cost_match": 0}
+# Calls of B1's and B4's backwards on CUDA (kernels/matcher.py,
+# kernels/roi_align.py): autograd through the plain version, with no kernel
+# of their own, so counted apart from launches.
+_BACKWARD_CALLS: Dict[str, int] = {"fused_pool_cost_match": 0, "roi_align": 0}
 
 # C signatures: every pointer and the stream are c_void_p (a bare Python int
 # would be passed as a 32-bit int and cut the pointer). Every function

@@ -17,6 +17,14 @@ Both count one ``roi_align`` launch per call that has boxes. Each launches
 the kernel for CUDA tensors (or raises) and runs its plain version for CPU
 tensors. Channel first: feats (C, H, W), boxes (K, 4) -> (K, C, oh, ow),
 the layout the detector's heads consume.
+
+B4' is ``multilevel_roi_align``'s gradient with respect to the four levels
+(the detector's training needs it for both heads): ``_MultilevelRoiAlign``,
+a ``torch.autograd.Function`` whose forward is B4 and whose backward is
+autograd through ``multilevel_roi_align_plain``, as the JAX detector's
+``roi_align_mxu`` is differentiated by XLA (no backward kernel there
+either). The boxes get no gradient: the detector stops gradients at its
+proposals.
 """
 
 from __future__ import annotations
@@ -113,23 +121,58 @@ def _launch(feats: Sequence[torch.Tensor], scales: Sequence[float],
     return out
 
 
+class _MultilevelRoiAlign(torch.autograd.Function):
+    """B4 with B4' as its backward. Forward: the CUDA kernel (the plain
+    version for CPU tensors); it saves the four levels and the boxes.
+    Backward: ``multilevel_roi_align_plain`` recomputed on detached levels
+    under ``enable_grad`` and differentiated by ``torch.autograd.grad``; on
+    CUDA each backward counts one call in ``_build.backward_calls()`` (it
+    launches no kernel of its own). The plain version aligns every box on
+    all four levels and keeps one, so the recompute does about 4x the work
+    of the box's own level; a CUDA backward that adds each output cell's
+    gradient into its taps on that level alone is later work."""
+
+    @staticmethod
+    def forward(ctx, boxes, out_size, sampling_ratio, *levels):
+        ctx.save_for_backward(boxes, *levels)
+        ctx.opts = (out_size, sampling_ratio)
+        if boxes.device.type == "cpu":
+            return multilevel_roi_align_plain(levels, boxes, out_size,
+                                              sampling_ratio)
+        lvl = fpn_levels(boxes).to(torch.int32)
+        return _launch(levels, [1.0 / 2 ** (i + 2) for i in range(_MAX_LEVELS)],
+                       boxes, lvl, out_size[0], out_size[1], sampling_ratio)
+
+    @staticmethod
+    def backward(ctx, g_out):
+        boxes, *levels = ctx.saved_tensors
+        with torch.enable_grad():
+            xs = [f.detach().requires_grad_(True) for f in levels]
+            out = multilevel_roi_align_plain(xs, boxes, *ctx.opts)
+            grads = torch.autograd.grad(out, xs, g_out)
+        if g_out.device.type == "cuda":
+            _build.count_backward("roi_align")
+        return (None, None, None, *grads)
+
+
 def multilevel_roi_align(levels: Sequence[torch.Tensor], boxes: torch.Tensor,
                          out_size: Tuple[int, int],
                          sampling_ratio: int = 2) -> torch.Tensor:
     """levels: the FPN maps p2..p5, each (C, H_l, W_l) float32 at stride
     2**(l + 2); boxes (K, 4) (x1, y1, x2, y2) in image coordinates ->
-    (K, C, oh, ow), each box aligned on its level (``fpn_levels``)."""
+    (K, C, oh, ow), each box aligned on its level (``fpn_levels``).
+    Differentiable with respect to the levels (B4'), not the boxes."""
     levels = list(levels)
     if len(levels) != _MAX_LEVELS:
         raise ValueError(f"multilevel_roi_align: needs the 4 maps p2..p5, "
                          f"got {len(levels)}")
     _check(levels, boxes)
+    if boxes.requires_grad:
+        raise ValueError("multilevel_roi_align: boxes must not require a "
+                         "gradient (the detector stops it at the proposals)")
     oh, ow = int(out_size[0]), int(out_size[1])
-    if boxes.device.type == "cpu":
-        return multilevel_roi_align_plain(levels, boxes, (oh, ow), sampling_ratio)
-    lvl = fpn_levels(boxes).to(torch.int32)
-    return _launch(levels, [1.0 / 2 ** (i + 2) for i in range(_MAX_LEVELS)],
-                   boxes, lvl, oh, ow, int(sampling_ratio))
+    return _MultilevelRoiAlign.apply(boxes, (oh, ow), int(sampling_ratio),
+                                     *levels)
 
 
 def roi_align(feats: torch.Tensor, boxes: torch.Tensor,

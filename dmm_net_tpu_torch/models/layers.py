@@ -120,9 +120,12 @@ class BatchNorm(nn.Module):
 def init_random(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded init: conv and dense kernels ~ N(0, 1/fan_in) (lecun normal),
     biases 0; BatchNorm scales keep their constructor init (1, or 0 for the
-    last BN of a residual block)."""
+    last BN of a residual block), and so do the DCNv2 offset predictors
+    (``offset_conv``, 0: each deformable conv starts as a plain one)."""
     with torch.no_grad():
         for name, p in module.named_parameters():
+            if ".offset_conv." in f".{name}":
+                continue
             if name.endswith("bias"):
                 p.zero_()
             elif p.dim() >= 2:

@@ -1,4 +1,5 @@
-"""Mask R-CNN (R-50-FPN) proposal detector, inference path, and mask pasting.
+"""Mask R-CNN (R-50-FPN) proposal detector: inference, the training forward,
+and mask pasting.
 
 Counterpart of the JAX package's models/proposal/maskrcnn.py, NCHW, float32:
 
@@ -16,6 +17,15 @@ assigned level only, all levels in one launch (2 launches per image, one
 for each head); the reference aligns every box on all four levels and
 keeps one, and the output is the same.
 
+``train_forward`` is the JAX package's training forward: the raw RPN
+outputs over all anchors and both heads on the proposals, which are chosen
+from detached RPN outputs (two-stage training does not backpropagate
+through proposal coordinates). ROI-Align's gradient reaches p2..p5 through
+B4' (kernels/roi_align.py). The detector trains with frozen BatchNorm (the
+reference's FrozenBatchNorm2d): ``trainable_()`` gives every parameter a
+gradient, BN scales and biases included (they are flax ``params``), while
+the running statistics stay fixed and ``forward`` stays ``no_grad``.
+
 Module names are the flax names (``backbone``, ``fpn``, ``rpn``,
 ``box_head``, ``mask_head``, ``fc6``, ``conv5_mask``, ...), so the weight
 bridge (weights.py) is a rename.
@@ -23,7 +33,7 @@ bridge (weights.py) is a rename.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -103,20 +113,21 @@ def _multilevel_roi_align(pyramid: Dict[str, torch.Tensor], boxes: torch.Tensor,
 
 
 class MaskRCNN(nn.Module):
-    """Single-image inference Mask R-CNN with static output sizes:
-    ``pre_nms_top_n`` candidates per level, ``post_nms_top_n`` proposals,
-    ``max_detections`` detections. Float32 throughout.
+    """Single-image Mask R-CNN with static output sizes: ``pre_nms_top_n``
+    candidates per level, ``post_nms_top_n`` proposals, ``max_detections``
+    detections. Float32 throughout. ``deform_stages`` (e.g. ("c3", "c4",
+    "c5")) gives the backbone DCNv2 in those stages.
 
     Weights are random from ``seed`` until the caller loads a checkpoint
-    (weights.load_flax_variables). Runs on CUDA unless ``device`` says
-    otherwise."""
+    (weights.load_flax_variables); they take no gradient until
+    ``trainable_()``. Runs on CUDA unless ``device`` says otherwise."""
 
     def __init__(self, image_size: Tuple[int, int] = (256, 448),
                  backbone_name: str = "resnet50", num_classes: int = 81,
                  pre_nms_top_n: int = 256, post_nms_top_n: int = 128,
                  max_detections: int = 64, rpn_nms_thresh: float = 0.7,
                  box_nms_thresh: float = 0.5, score_thresh: float = 0.05,
-                 device=None, seed: int = 0):
+                 deform_stages: Sequence[str] = (), device=None, seed: int = 0):
         super().__init__()
         self.image_size = tuple(image_size)
         self.num_classes = num_classes
@@ -126,7 +137,8 @@ class MaskRCNN(nn.Module):
         self.rpn_nms_thresh = rpn_nms_thresh
         self.box_nms_thresh = box_nms_thresh
         self.score_thresh = score_thresh
-        self.backbone = backbone_by_name(backbone_name, dtype=torch.float32)
+        self.backbone = backbone_by_name(backbone_name, dtype=torch.float32,
+                                         deform_stages=tuple(deform_stages))
         self.fpn = FPN(feature_dims(backbone_name))
         self.rpn = RPNHead()
         self.box_head = BoxHead(num_classes)
@@ -143,28 +155,41 @@ class MaskRCNN(nn.Module):
     def device(self) -> torch.device:
         return self.anchors.device
 
-    @torch.no_grad()
-    def forward(self, image: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """image (1, 3, H, W) float in [0, 1] (or whatever distribution the
-        weights were trained on). Returns boxes (D, 4), scores (D,),
-        classes (D,) int64, masks (D, 28, 28) sigmoid, valid (D,) bool, with
-        D = max_detections."""
-        H, W = self.image_size
-        if tuple(image.shape) != (1, 3, H, W):
-            raise ValueError(f"image {tuple(image.shape)}, expected (1, 3, {H}, {W})")
-        with record_function("detector/backbone_fpn"):
-            pyramid = self.fpn(self.backbone(image.float()))
+    def trainable_(self, on: bool = True) -> "MaskRCNN":
+        """Give every parameter a gradient (or take it away). BatchNorm
+        stays frozen on its running statistics either way."""
+        self.requires_grad_(on)
+        return self
 
+    def _check_images(self, images: torch.Tensor, batch=None) -> None:
+        H, W = self.image_size
+        if images.dim() != 4 or tuple(images.shape[1:]) != (3, H, W) or (
+                batch is not None and images.shape[0] != batch):
+            raise ValueError(f"image {tuple(images.shape)}, expected "
+                             f"({batch or 'B'}, 3, {H}, {W})")
+
+    def _pyramid(self, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """p2..p6 of (B, 3, H, W) images. The input is made contiguous
+        first: a channels-last view (an NHWC frame permuted) would make the
+        convolutions' outputs channels-last, and B4 takes contiguous maps."""
+        return self.fpn(self.backbone(images.float().contiguous()))
+
+    def _rpn(self, pyramid: Dict[str, torch.Tensor]):
+        """RPN over p2..p6, flattened per image in (level, h, w, anchor)
+        order: objectness (B, A), deltas (B, A, 4)."""
+        obj, deltas = [], []
+        for name in ("p2", "p3", "p4", "p5", "p6"):
+            logits, d = self.rpn(pyramid[name])
+            B = logits.shape[0]
+            obj.append(logits.permute(0, 2, 3, 1).reshape(B, -1))
+            deltas.append(d.permute(0, 2, 3, 1).reshape(B, -1, 4))
+        return torch.cat(obj, 1), torch.cat(deltas, 1)
+
+    def _proposals(self, obj: torch.Tensor, deltas: torch.Tensor):
+        """One image's objectness (A,) and deltas (A, 4) (detached by the
+        caller in training) -> per-level top-k, joint NMS: proposals
+        (post_nms_top_n, 4) and their validity."""
         with record_function("detector/rpn"):
-            # RPN over levels, flattened in (h, w, anchor) order
-            obj, deltas = [], []
-            for name in ("p2", "p3", "p4", "p5", "p6"):
-                logits, d = self.rpn(pyramid[name])
-                obj.append(logits.permute(0, 2, 3, 1).reshape(-1))
-                deltas.append(d.permute(0, 2, 3, 1).reshape(-1, 4))
-            obj = torch.cat(obj)
-            deltas = torch.cat(deltas)
-            # per-level top-k
             cand = torch.cat([
                 torch.topk(obj[a:b], min(self.pre_nms_top_n, b - a)).indices + a
                 for a, b in self._slices])
@@ -172,12 +197,26 @@ class MaskRCNN(nn.Module):
                 decode_boxes(deltas[cand], self.anchors[cand]), self.image_size)
             wh_ok = ((cand_boxes[:, 2] - cand_boxes[:, 0] > 1e-3)
                      & (cand_boxes[:, 3] - cand_boxes[:, 1] > 1e-3))
-
         with record_function("detector/rpn_nms"):
             keep_idx, prop_valid = nms_boxes(cand_boxes, obj[cand], wh_ok,
                                              iou_threshold=self.rpn_nms_thresh,
                                              max_out=self.post_nms_top_n)
-            proposals = cand_boxes[keep_idx.clamp_min(0)]
+            return cand_boxes[keep_idx.clamp_min(0)], prop_valid
+
+    @torch.no_grad()
+    def forward(self, image: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """image (1, 3, H, W) float in [0, 1] (or whatever distribution the
+        weights were trained on). Returns boxes (D, 4), scores (D,),
+        classes (D,) int64, masks (D, 28, 28) sigmoid, valid (D,) bool, with
+        D = max_detections."""
+        H, W = self.image_size
+        self._check_images(image, 1)
+        with record_function("detector/backbone_fpn"):
+            pyramid = self._pyramid(image)
+
+        with record_function("detector/rpn"):
+            obj, deltas = self._rpn(pyramid)
+        proposals, prop_valid = self._proposals(obj[0], deltas[0])
 
         with record_function("detector/box_head"):
             # best foreground class per proposal, and its box
@@ -213,6 +252,44 @@ class MaskRCNN(nn.Module):
         return {"boxes": final_boxes, "scores": best_score[dsafe] * d_mask,
                 "classes": final_classes, "masks": torch.sigmoid(masks),
                 "valid": d_mask}
+
+    def train_forward_batch(self, images: torch.Tensor) -> List[Dict[str, torch.Tensor]]:
+        """``train_forward`` for each image of a batch (B, 3, H, W), with
+        the backbone, the FPN and the RPN convolutions run once on the
+        whole batch (BatchNorm is frozen, so each image's result is its
+        own); the proposal selection, ROI-Align (B4, one launch per head)
+        and the heads run per image."""
+        self._check_images(images)
+        with record_function("detector/backbone_fpn"):
+            pyramid = self._pyramid(images)
+        with record_function("detector/rpn"):
+            obj, deltas = self._rpn(pyramid)
+        outs = []
+        for b in range(images.shape[0]):
+            proposals, prop_valid = self._proposals(obj[b].detach(),
+                                                    deltas[b].detach())
+            levels = {name: pyramid[name][b:b + 1] for name in _ROI_LEVELS}
+            with record_function("detector/box_head"):
+                cls_scores, box_deltas = self.box_head(
+                    _multilevel_roi_align(levels, proposals, (7, 7)))
+            with record_function("detector/mask_head"):
+                mask_logits = self.mask_head(
+                    _multilevel_roi_align(levels, proposals, (14, 14)))
+            outs.append({"rpn_objectness": obj[b], "rpn_deltas": deltas[b],
+                         "anchors": self.anchors, "proposals": proposals,
+                         "prop_valid": prop_valid, "cls_scores": cls_scores,
+                         "box_deltas": box_deltas, "mask_logits": mask_logits})
+        return outs
+
+    def train_forward(self, image: torch.Tensor) -> Dict[str, torch.Tensor]:
+        """Training forward of one image (1, 3, H, W): rpn_objectness (A,)
+        and rpn_deltas (A, 4) over all anchors, anchors (A, 4), proposals
+        (P, 4) and prop_valid (P,) from the detached RPN outputs, and on
+        those proposals cls_scores (P, C), box_deltas (P, C * 4) and
+        mask_logits (P, C, 28, 28), with P = post_nms_top_n: everything
+        models/proposal/losses.py takes."""
+        self._check_images(image, 1)
+        return self.train_forward_batch(image)[0]
 
 
 def _paste_interp(coord: torch.Tensor, m: int) -> torch.Tensor:

@@ -92,11 +92,14 @@ def roi_align_mxu(feats: torch.Tensor, boxes: torch.Tensor,
                   out_size: Tuple[int, int] = (7, 7), sampling_ratio: int = 2,
                   spatial_scale: float = 1.0) -> torch.Tensor:
     """Separable ROI-Align: feats (C, H, W), boxes (K, 4) -> (K, C, oh, ow);
-    same function as ``roi_align``, as two products per box."""
+    same function as ``roi_align``, as two products per box. Float32, or
+    float64 for float64 feats (the interpolation weights are float32 either
+    way), so that autograd's gradcheck can hold B4''s backward."""
     C, H, W = feats.shape
     oh, ow = out_size
+    dt = torch.promote_types(feats.dtype, torch.float32)
     b = boxes.float() * spatial_scale
-    Ay = _interp_matrix(b[:, 1], b[:, 3] - b[:, 1], oh, sampling_ratio, H)
-    Ax = _interp_matrix(b[:, 0], b[:, 2] - b[:, 0], ow, sampling_ratio, W)
-    t = torch.einsum("kyh,chw->kcyw", Ay, feats.float())
+    Ay = _interp_matrix(b[:, 1], b[:, 3] - b[:, 1], oh, sampling_ratio, H).to(dt)
+    Ax = _interp_matrix(b[:, 0], b[:, 2] - b[:, 0], ow, sampling_ratio, W).to(dt)
+    t = torch.einsum("kyh,chw->kcyw", Ay, feats.to(dt))
     return torch.einsum("kxw,kcyw->kcyx", Ax, t)

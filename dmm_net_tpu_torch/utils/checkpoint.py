@@ -20,6 +20,10 @@ into ``{"__msgpack_chunked_array__": True, "shape", "chunks"}`` maps.
 ``load_msgpack_ckpt`` returns the same tree as ``msgpack_restore``: dicts
 with str keys, lists, and read-only numpy leaves of the stored dtype
 (bfloat16 leaves, which numpy cannot hold, come back as float32, exactly).
+``msgpack_serialize`` writes str-keyed dicts of numeric arrays as flax's
+``msgpack_serialize`` does, byte for byte: the detector's ``{"params",
+"batch_stats"}`` files that train_proposal_torch.py saves are read by both
+packages.
 """
 
 from __future__ import annotations
@@ -123,6 +127,78 @@ class _Reader:
             re, im = _Reader(data).read()
             return complex(re, im)
         raise ValueError(f"msgpack: unknown ext type {code}")
+
+
+def _length(n: int, fix: Optional[int], fix_max: int, codes) -> bytes:
+    """A msgpack length header: the fix form up to ``fix_max``, else the
+    smallest of ``codes`` (8-, 16- and 32-bit lengths; None where the type
+    has no such form)."""
+    if fix is not None and n <= fix_max:
+        return bytes([fix | n])
+    for code, fmt, limit in zip(codes, "BHI", (1 << 8, 1 << 16, 1 << 32)):
+        if code is not None and n < limit:
+            return struct.pack(">B" + fmt, code, n)
+    raise ValueError(f"msgpack: object of length {n} is too large")
+
+
+def _str(s: str) -> bytes:
+    data = s.encode("utf-8")
+    return _length(len(data), 0xA0, 31, (0xD9, 0xDA, 0xDB)) + data
+
+
+def _uint(v: int) -> bytes:
+    """The smallest msgpack form of a non-negative int."""
+    if v <= 0x7F:
+        return bytes([v])
+    for code, fmt, limit in ((0xCC, "B", 1 << 8), (0xCD, "H", 1 << 16),
+                             (0xCE, "I", 1 << 32), (0xCF, "Q", 1 << 64)):
+        if v < limit:
+            return struct.pack(">B" + fmt, code, v)
+    raise OverflowError(f"msgpack: int {v} out of range")
+
+
+# flax splits arrays above this many bytes into chunks; the writer does not
+_MAX_CHUNK_BYTES = 2 ** 30
+
+
+def _ndarray_ext(arr: np.ndarray) -> bytes:
+    """flax's ndarray extension (type 1): the msgpack triple (shape, dtype
+    name, raw C-order bytes), under a fixext header where the payload is 1,
+    2, 4, 8 or 16 bytes long."""
+    if arr.dtype.kind not in "biuf" or arr.nbytes > _MAX_CHUNK_BYTES:
+        raise ValueError(f"msgpack: cannot write a {arr.dtype} array of "
+                         f"{arr.nbytes} bytes")
+    raw = arr.tobytes("C")
+    data = b"".join([b"\x93", _length(arr.ndim, 0x90, 15, (None, 0xDC, 0xDD)),
+                     *(_uint(int(d)) for d in arr.shape), _str(arr.dtype.name),
+                     _length(len(raw), None, 0, (0xC4, 0xC5, 0xC6)), raw])
+    fix = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}.get(len(data))
+    head = bytes([fix]) if fix else _length(len(data), None, 0, (0xC7, 0xC8, 0xC9))
+    return head + struct.pack(">b", _EXT_NDARRAY) + data
+
+
+def _pack(tree, out: list) -> None:
+    if type(tree) is dict:
+        out.append(_length(len(tree), 0x80, 15, (None, 0xDE, 0xDF)))
+        for k in sorted(tree):        # flax's tree_map copy sorts the keys
+            if type(k) is not str:
+                raise TypeError(f"msgpack: key {k!r} is not a str")
+            out.append(_str(k))
+            _pack(tree[k], out)
+    elif isinstance(tree, np.ndarray):
+        out.append(_ndarray_ext(tree))
+    else:
+        raise TypeError(f"msgpack: cannot write {type(tree).__name__}")
+
+
+def msgpack_serialize(tree) -> bytes:
+    """Encode nested str-keyed dicts of numeric numpy arrays (the
+    ``{"params", "batch_stats"}`` trees of ``weights.to_flax_variables``)
+    byte for byte as ``flax.serialization.msgpack_serialize`` does; both
+    ``msgpack_restore`` and flax read it. Anything else raises."""
+    out: list = []
+    _pack(tree, out)
+    return b"".join(out)
 
 
 def _ndarray_from_bytes(data) -> np.ndarray:

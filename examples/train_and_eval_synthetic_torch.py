@@ -11,7 +11,7 @@ Usage: python examples/train_and_eval_synthetic_torch.py [--steps 300]
 Expected: decoder J&F rises from ~0 (untrained) to > 0.7: the decoder
 learns to refine the matcher-aggregated masks. Runs on CUDA unless
 --device says otherwise. Not ported: --mrcnn (training on detector
-proposals waits for the detector's training, ROADMAP.md §A, item 8).
+proposals, ROADMAP.md §A, item 9).
 """
 
 import argparse
@@ -75,8 +75,8 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.mrcnn:
         raise SystemExit("--mrcnn (training on Mask R-CNN proposals) is not "
-                         "ported to the PyTorch package yet: it needs the "
-                         "detector's training (see ROADMAP.md §A, item 8)")
+                         "ported to the PyTorch package yet (see ROADMAP.md "
+                         "§A, item 9)")
 
     import dataclasses
 
