@@ -103,7 +103,26 @@ Phases, each fatal on failure:
      detector on 4 held-out videos, as saved and on the kernels: planted J&F
      against the JAX package's, detector recall and J&F over floors; (9f) a
      full-width DCNv2 detector (c3..c5) forward and train steps, and a small
-     one card vs CPU.
+     one card vs CPU;
+  10. data parallelism (parallel/mesh.py), profiling, debug, the examples
+     and the importers: (10a) a one-rank mesh over NCCL at full p5_train
+     width (B1, B1'): its losses equal to the meshless step's and its
+     gradients as close as meshless steps are to each other, ms per step
+     of both; (10b) two ranks sharing the card over gloo at p5_train
+     width (float32 backbone) and at a small width with train-mode BN,
+     fused matcher and remat, the halves' valid counts unequal: loss, grad norm, every gradient and the BN statistics against
+     one process on the whole batch; (10c) the p3 engine on two ranks at
+     full width (B=4, K=8), labels against phase 4's engine, and (in 5d)
+     infer_torch.py --data-parallel, a one-rank NCCL mesh, giving the J&F
+     of the same CLI without it; (10d) the R-50-FPN detector's train step
+     at 256x448, batch 2, on two ranks (one image each) against one
+     process; (10e) utils/profiling.trace around a p3 chunk naming B1's and
+     B2's kernels, StageTimer, and utils/debug.checked on a NaN in B1's
+     input; (10f) examples/train_synthetic_torch.py, infer_demo_torch.py,
+     matcher_only_torch.py and train_and_eval_synthetic_torch.py --mrcnn on
+     the card, and a seeded torchvision-layout Mask R-CNN state dict
+     through tools/import_maskrcnn_weights_torch.py into the full-width
+     detector's forward (B4). Two ranks on one card make no speed number.
 
 PIL is required (phases 5d, 6, 7 and 9 read and write image trees). Prints
 one JSON line {"kernels": [...]} with each kernel's launches (on the p3
@@ -926,7 +945,9 @@ def ckpt_path():
 
 def cli_on_card():
     """infer_torch.py on the card, on a 2-sequence DAVIS-layout tree written
-    to a temporary directory (PIL writes and reads the tree)."""
+    to a temporary directory (PIL writes and reads the tree); then (phase
+    10c) the same with --data-parallel, a one-rank mesh over NCCL on the
+    one card, which must give the same J&F."""
     import tempfile
     Image = require_pil("phase 5d")
     from dmm_net_tpu_torch.data.synthetic import synthetic_sequence
@@ -949,19 +970,33 @@ def cli_on_card():
                     root / "Annotations" / "480p" / name / f"{t:05d}.png")
         (root / "ImageSets" / "2017").mkdir(parents=True)
         (root / "ImageSets" / "2017" / "val.txt").write_text("\n".join(names))
-        t0 = time.perf_counter()
-        r = subprocess.run([sys.executable, str(ROOT / "infer_torch.py"),
-                            "--ckpt", str(ROOT / CKPT), "--davis-root", str(root),
-                            "--out", str(out), "--device", "cuda"],
-                           capture_output=True, text=True, timeout=600)
-        if r.returncode != 0:
-            fail(f"infer_torch.py failed on the card: {r.stderr[-2000:]}")
-        summary = json.loads((out / "results.json").read_text())
-    log(f"infer_torch.py on the card: 2 sequences x 6 frames at 427x240 "
-        f"native, J&F {summary['J&F']:.4f}, {summary['fps']:.1f} frames/s "
-        f"inside the engine, {time.perf_counter() - t0:.1f} s for the command")
+        summaries = {}
+        for flag in ((), ("--data-parallel",)):
+            t0 = time.perf_counter()
+            r = subprocess.run([sys.executable, str(ROOT / "infer_torch.py"),
+                                "--ckpt", str(ROOT / CKPT), "--davis-root",
+                                str(root), "--out", str(out / str(len(flag))),
+                                "--device", "cuda", *flag],
+                               capture_output=True, text=True, timeout=600)
+            if r.returncode != 0:
+                fail(f"infer_torch.py {' '.join(flag)} failed on the card: "
+                     f"{r.stderr[-2000:]}")
+            summary = json.loads((out / str(len(flag)) / "results.json")
+                                 .read_text())
+            summaries[flag] = summary
+            log(f"infer_torch.py {' '.join(flag)} on the card: 2 sequences x 6 "
+                f"frames at 427x240 native, J&F {summary['J&F']:.4f}, "
+                f"{summary['fps']:.1f} frames/s inside the engine, "
+                f"data_parallel {summary['data_parallel']}, "
+                f"{time.perf_counter() - t0:.1f} s for the command")
+    summary, dp = summaries[()], summaries[("--data-parallel",)]
     if not summary["J&F"] > 0.85:
         fail(f"infer_torch.py on the card: J&F {summary['J&F']:.4f} <= 0.85")
+    # 10c: --data-parallel on the one card is a one-rank NCCL mesh; each
+    # sequence runs alone through the same engine, so the scores are equal
+    if dp["J&F"] != summary["J&F"] or dp["data_parallel"] != 1:
+        fail(f"10c: infer_torch.py --data-parallel J&F {dp['J&F']} "
+             f"(data_parallel {dp['data_parallel']}) != {summary['J&F']}")
     return summary["J&F"]
 
 
@@ -2221,6 +2256,636 @@ def dcn_path():
                          "peak_gib": peak / 2**30, "small_loss_rel": rel}
 
 
+# ---------------------------------------------------------------------------
+# phase 10: data parallelism (parallel/mesh.py), profiling, debug, the
+# examples and the weight importers
+# ---------------------------------------------------------------------------
+
+# 10a/10b: p5_train at full width (R-50 256x448, M=8, N=64, B=4 clips of
+# T=4) on synthetic clips; clip 0 tracks one object and the others two, so
+# the halves of the batch hold 3 and 4 valid objects. 10b runs the backbone
+# in float32 (the preset's is bf16), so that the comparison with one
+# process is held at the CPU tests' tolerances
+# (tests/test_torch_port_parallel_train.py): the loss and the gradient norm
+# to 1e-4 relative, every gradient leaf to 1e-4 of its largest entry, the
+# BN running statistics to 1e-5. 10b's small configuration is that file's
+# train_bn one (R-18 float32 64x64, train-mode BN, fused matcher, remat).
+MESH_P5 = dict(seed=7501, batch=4, T=4)
+MESH_STEPS = 6
+MESH_F32 = {"model.backbone_dtype": "float32"}
+MESH_SMALL = {"model.backbone": "resnet18", "model.backbone_dtype": "float32",
+              "model.image_size": (64, 64), "model.feature_dim": 32,
+              "model.decoder_dim": 16, "model.train_bn": True,
+              "matching.max_templates": 4, "matching.max_proposals": 8,
+              "matching.sinkhorn_iters": 10, "matching.use_pallas": True,
+              "train.remat": True, "train.warmup_steps": 0, "train.lr": 1e-3,
+              "train.loss_iou_weight": 0.5}
+# 10c: the p3 engine at full width, B=4 sequences, K=8, 2 chunks; the
+# first two sequences (rank 0's) hold 3 and 2 objects, the last two 7 and
+# 5, so the object bucket (8) must be the whole batch's on both ranks.
+MESH_ENGINE = dict(seed=7502, T=16, K=8, n_valid=[3, 2, 7, 5])
+# 10d: the R-50-FPN detector at 256x448 (81 classes, train_proposal.py's
+# top-n 64/32/16), batch 2 noise images with synthetic_detection_frame's
+# ground truth; the RPN's delta kernel zeroed and the mask head's
+# convolutions biased positive, as tests/test_torch_port_detector_train.py
+# does (random deltas near the decode's clip, and pre-activations on
+# ReLU's kink, would turn rounding into discrete changes). Held as
+# tests/test_torch_port_parallel_detector.py holds the CPU step: the loss
+# and its parts to 1e-4 relative, the whole gradient to a relative L2 of
+# 1e-5.
+MESH_DET = dict(detector=dict(image_size=(256, 448), backbone_name="resnet50",
+                              num_classes=81, pre_nms_top_n=64,
+                              post_nms_top_n=32, max_detections=16),
+                seed=7503, frames=(7503, 7504), G=4)
+# examples/infer_demo.py's matcher-aggregated J&F, as it prints it (CPU);
+# tests/test_torch_port_tools.py recomputes it beside the port's.
+JAX_INFER_DEMO_AGG_JF = 0.781
+
+
+def mesh_p5_batch(small=False):
+    """10a/10b's clip batch (numpy), clip 0 cut to one valid object."""
+    from dmm_net_tpu_torch.data.synthetic import synthetic_clip_batch
+    if small:
+        b = synthetic_clip_batch(seed=0, batch=2, T=3, H=64, W=64, num_objects=2,
+                                 num_proposals=8, pad_objects=4)
+    else:
+        b = synthetic_clip_batch(seed=MESH_P5["seed"], batch=MESH_P5["batch"],
+                                 T=MESH_P5["T"], H=256, W=448, num_objects=2,
+                                 num_proposals=64, pad_objects=8)
+    b = {k: np.asarray(v) for k, v in b.items()}
+    b["tmpl_valid"][0, 1:] = False
+    return b
+
+
+def mesh_p5_config(small=False, f32=False):
+    from dmm_net_tpu_torch.config import preset
+    cfg = preset("p5_train").override(**{"matching.use_pallas": True})
+    if small:
+        return cfg.override(**MESH_SMALL)
+    return cfg.override(**MESH_F32) if f32 else cfg
+
+
+def mesh_train_run(cfg, batch, steps, mesh=None):
+    """``steps`` train steps from seed 0 on ``batch`` (this rank's rows on
+    a mesh): losses, grad norms, ms per step (host clock, each step ending
+    in a read of its loss), the first step's reduced gradients and BN
+    running statistics, and B1 launches and B1' calls over the steps."""
+    import torch
+    from dmm_net_tpu_torch.kernels import (backward_calls, launch_counts,
+                                           reset_launch_counts)
+    from dmm_net_tpu_torch.parallel import shard_batch
+    from dmm_net_tpu_torch.train.loop import (batch_to, create_train_state,
+                                              make_train_step)
+    state = create_train_state(cfg, seed=0, device="cuda", mesh=mesh)
+    step = make_train_step(cfg, mesh)
+    b = batch_to(batch if mesh is None else shard_batch(batch, mesh),
+                 state.model.device)
+    first = {}
+    update = state.optimizer.update
+
+    def keep(grads):
+        if not first:
+            first["grads"] = [g.detach().clone() for g in grads]
+        return update(grads)
+
+    state.optimizer.update = keep
+    out = {"loss": [], "grad_norm": [], "ms": []}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    for i in range(steps):
+        t0 = time.perf_counter()
+        m = step(state, b)
+        out["loss"].append(float(m["loss"]))
+        out["ms"].append(1e3 * (time.perf_counter() - t0))
+        out["grad_norm"].append(float(m["grad_norm"]))
+        if i == 0:
+            out["bn"] = {k: v.detach().clone() for k, v in
+                         state.model.state_dict().items()
+                         if k.endswith(("running_mean", "running_var"))}
+    torch.cuda.synchronize()
+    out["launches"] = launch_counts()["fused_pool_cost_match"]
+    out["b1_backward"] = backward_calls()["fused_pool_cost_match"]
+    out["grads"] = first["grads"]
+    out["names"] = [n for n, _ in state.model.named_parameters()]
+    return out
+
+
+def _one_rank_p5(cfg, batch):
+    import torch.distributed as dist
+    from dmm_net_tpu_torch.parallel import make_mesh
+    mesh = make_mesh()
+    return dist.get_backend(), mesh_train_run(cfg, batch, MESH_STEPS, mesh)
+
+
+def _worst_leaf(got, want, names):
+    """The largest |got - want| over a leaf's largest |want|, and its leaf."""
+    def ratio(g, w):
+        g, w = g.detach().double().cpu(), w.detach().double().cpu()
+        return float((g - w).abs().max() / (w.abs().max() + 1e-12))
+    return max((ratio(g, w), n) for n, g, w in zip(names, got, want))
+
+
+def grads_close(what, got, want, names, leaf_tol):
+    """Every leaf of ``got`` within ``leaf_tol`` of that leaf's largest
+    entry in ``want``; returns the worst such ratio."""
+    worst, name = _worst_leaf(got, want, names)
+    if not worst <= leaf_tol:
+        fail(f"{what}: gradient of {name} off by {worst:.2e} of its largest "
+             f"entry (limit {leaf_tol:.0e})")
+    return worst
+
+
+def _rel_l2(got, want) -> float:
+    """||got - want|| / ||want|| over every leaf together."""
+    num = sum(float((g.detach().double().cpu() - w.detach().double().cpu())
+                    .square().sum()) for g, w in zip(got, want))
+    den = sum(float(w.detach().double().square().sum()) for w in want)
+    return (num / max(den, 1e-300)) ** 0.5
+
+
+def mesh_one_rank_path():
+    """Phase 10a: a one-rank mesh over NCCL at full p5_train width (B1 and
+    B1' on the card) against the meshless step. A one-rank all-reduce is a
+    copy, so the first step's loss must be equal (the later ones, after
+    updates from the gradients below, to 1e-4); the gradients are not
+    bitwise reproducible on the card even without the mesh (some backward
+    operations add with atomics), so their relative L2 distance to the
+    meshless step's must stay within 3x the largest distance between three
+    meshless runs (and be 0 if those are equal); ms per step of both."""
+    from dmm_net_tpu_torch.parallel import launch
+    cfg, batch = mesh_p5_config(), mesh_p5_batch()
+    T = MESH_P5["T"]
+    plain = mesh_train_run(cfg, batch, MESH_STEPS)
+    runs = [mesh_train_run(cfg, batch, 1) for _ in range(2)]
+    backend, mesh = launch(_one_rank_p5, 1, "cuda", cfg, batch)[0]
+    names = plain["names"]
+    pairs = ((runs[0], plain), (runs[1], plain), (runs[0], runs[1]))
+    spread = max(_rel_l2(a["grads"], b["grads"]) for a, b in pairs)
+    diff = _rel_l2(mesh["grads"], plain["grads"])
+    leaf = _worst_leaf(mesh["grads"], plain["grads"], names)
+    leaf_spread = max(_worst_leaf(a["grads"], b["grads"], names)
+                      for a, b in pairs)
+    ms_plain, ms_mesh = (float(np.median(r["ms"][1:])) for r in (plain, mesh))
+    log(f"10a one-rank mesh ({backend}) at p5_train width: losses "
+        f"{mesh['loss']} vs meshless {plain['loss']}; gradient relative L2 "
+        f"against the meshless step {diff:.3e}, between meshless runs up to "
+        f"{spread:.3e} (limit 3x); worst leaf {leaf[0]:.2e} ({leaf[1]}), "
+        f"between meshless runs up to {leaf_spread[0]:.2e}; ms per step "
+        f"{ms_mesh:.1f} with the mesh, {ms_plain:.1f} without (median of "
+        f"steps 2-{MESH_STEPS}); B1 launches {mesh['launches']}, B1' calls "
+        f"{mesh['b1_backward']}")
+    if backend != "nccl":
+        fail(f"10a: the one-rank mesh runs on {backend}, expected nccl")
+    later = max(abs(a - b) / abs(b) for a, b in zip(mesh["loss"], plain["loss"]))
+    if mesh["loss"][0] != plain["loss"][0] or later > 1e-4 or diff > 3 * spread:
+        fail("10a: the one-rank mesh step differs from the meshless one by "
+             "more than the meshless step differs from itself")
+    if mesh["launches"] != MESH_STEPS * T or mesh["b1_backward"] != MESH_STEPS * T:
+        fail(f"10a: B1 {mesh['launches']} launches, B1' {mesh['b1_backward']} "
+             f"calls, expected {MESH_STEPS * T} each")
+    return {"loss": mesh["loss"], "loss_meshless": plain["loss"],
+            "grad_rel_l2": diff, "meshless_rel_l2": spread,
+            "worst_leaf": leaf[0], "meshless_worst_leaf": leaf_spread[0],
+            "ms_per_step": ms_mesh, "ms_per_step_meshless": ms_plain,
+            "launches": mesh["launches"], "b1_backward": mesh["b1_backward"]}
+
+
+def mesh_engine_inputs():
+    from dmm_net_tpu_torch.config import preset
+    cfg = preset("p3_multi_object")
+    H, W = cfg.model.image_size
+    return cfg, make_stream(MESH_ENGINE["seed"], MESH_ENGINE["T"], 4,
+                            cfg.matching.max_templates,
+                            cfg.matching.max_proposals, H, W,
+                            n_valid=MESH_ENGINE["n_valid"])
+
+
+def mesh_det_model(device):
+    """10d's detector from its seed, with the RPN delta kernel at 0 and the
+    mask head's convolution biases at 3."""
+    import torch
+    from dmm_net_tpu_torch.models.proposal import MaskRCNN
+    det = MaskRCNN(**MESH_DET["detector"], device=device, seed=MESH_DET["seed"])
+    with torch.no_grad():
+        det.rpn.bbox_pred.weight.zero_()
+        for name, m in det.mask_head.named_children():
+            if name.startswith("mask_fcn") and name != "mask_fcn_logits" or \
+                    name == "conv5_mask":
+                m.bias.fill_(3.0)
+    return det.trainable_()
+
+
+def mesh_det_batch():
+    from dmm_net_tpu_torch.data.synthetic import synthetic_detection_frame
+    from dmm_net_tpu_torch.train.proposal_loop import stack_detection_frames
+    H, W = MESH_DET["detector"]["image_size"]
+    frames = [synthetic_detection_frame(seed=s, H=H, W=W, max_objects=MESH_DET["G"],
+                                        num_classes=3) for s in MESH_DET["frames"]]
+    batch = stack_detection_frames(frames)
+    batch["images"] = np.random.RandomState(MESH_DET["seed"]).rand(
+        *batch["images"].shape).astype(np.float32)
+    return batch
+
+
+class KeepGrads:
+    """An optimizer stand-in that keeps the gradients the step hands it."""
+
+    def __init__(self, params):
+        self.params = list(params)
+        self.grads = None
+
+    def step(self):
+        self.grads = [p.grad.detach().clone() for p in self.params]
+
+    def zero_grad(self, set_to_none=True):
+        for p in self.params:
+            p.grad = None
+
+
+def mesh_det_step(mesh=None):
+    """One detector train step (10d) on the batch, or this rank's rows of
+    it: its metrics, gradients and B4 / B4' counts."""
+    import torch
+    from dmm_net_tpu_torch.kernels import (backward_calls, launch_counts,
+                                           reset_launch_counts)
+    from dmm_net_tpu_torch.parallel import replicate_, shard_batch
+    from dmm_net_tpu_torch.train.proposal_loop import (make_proposal_train_step,
+                                                       proposal_batch_to)
+    det = mesh_det_model("cuda" if mesh is None else mesh.device)
+    if mesh is not None:
+        replicate_(det, mesh)
+    opt = KeepGrads(det.parameters())
+    step = make_proposal_train_step(det, opt, mesh=mesh)
+    batch = mesh_det_batch()
+    b = proposal_batch_to(batch if mesh is None else shard_batch(batch, mesh),
+                          det.device)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    m = step(b)
+    torch.cuda.synchronize()
+    return {"metrics": {k: float(v) for k, v in m.items()},
+            "grads": [g.cpu() for g in opt.grads],
+            "launches": launch_counts()["roi_align"],
+            "b4_backward": backward_calls()["roi_align"]}
+
+
+def _two_ranks():
+    """Phase 10b-10d on one of two ranks sharing the card (gloo)."""
+    import torch
+    import torch.distributed as dist
+    from dmm_net_tpu_torch.infer.engine import InferenceEngine
+    from dmm_net_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from dmm_net_tpu_torch.parallel import make_mesh
+    mesh = make_mesh()
+    lead = mesh.rank == 0
+    out = {"backend": dist.get_backend(), "rank": mesh.rank}
+    p5 = mesh_train_run(mesh_p5_config(f32=True), mesh_p5_batch(), 1, mesh)
+    small = mesh_train_run(mesh_p5_config(small=True), mesh_p5_batch(small=True),
+                           1, mesh)
+    for k, r in (("p5", p5), ("small", small)):
+        r["grads"] = [g.cpu() for g in r["grads"]] if lead else None
+        r["bn"] = {n: v.cpu() for n, v in r["bn"].items()} if lead else None
+        out[k] = r
+    cfg, (frames, tmpl, valid, items) = mesh_engine_inputs()
+    engine = InferenceEngine(cfg, seed=0, mesh=mesh)
+    K = MESH_ENGINE["K"]
+    engine.run_stream_chunked(iter(items[:K]), tmpl, valid, frames[0], chunk=K)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = engine.run_stream_chunked(iter(items), tmpl, valid, frames[0], chunk=K)
+    out["engine"] = {"labels": res["labels"], "assignments": res["assignments"],
+                     "seconds": time.perf_counter() - t0,
+                     "launches": launch_counts()}
+    try:
+        engine.run_stream_chunked(iter(items), tmpl[:3], valid[:3], frames[0][:3],
+                                  chunk=K)
+        out["engine"]["refusal"] = None
+    except ValueError as e:
+        out["engine"]["refusal"] = str(e)
+    out["detector"] = mesh_det_step(mesh)
+    if not lead:
+        out["detector"]["grads"] = None
+    return out
+
+
+def mesh_two_rank_path(engine):
+    """Phases 10b-10d: two ranks sharing the card over gloo (10b p5_train
+    width in float32 and the small train_bn configuration, 10c the p3
+    engine, 10d the R-50-FPN detector's step), each against one process
+    on the whole batch on the same card: ``engine`` is phase 4's."""
+    import torch
+    from dmm_net_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from dmm_net_tpu_torch.parallel import launch
+    t0 = time.perf_counter()
+    r0, r1 = launch(_two_ranks, 2, "cuda")
+    log(f"10b-10d: 2 ranks sharing the card over {r0['backend']} in "
+        f"{time.perf_counter() - t0:.1f} s; two ranks on one card make no "
+        "speed number: their times below are not data-parallel speed")
+    if r0["backend"] != "gloo":
+        fail(f"10b: two ranks on one card run on {r0['backend']}, expected gloo")
+    T = MESH_P5["T"]
+    res = {}
+    for k, small in (("p5", False), ("small", True)):
+        want = mesh_train_run(mesh_p5_config(small=small, f32=not small),
+                              mesh_p5_batch(small=small), 1)
+        got, other = r0[k], r1[k]
+        rel = [abs(got[m][0] - want[m][0]) / abs(want[m][0])
+               for m in ("loss", "grad_norm")]
+        worst = grads_close(f"10b {k}", got["grads"], want["grads"],
+                            want["names"], 1e-4)
+        bn = max((float((got["bn"][n] - v.cpu()).abs().max()) for n, v in
+                  want["bn"].items()), default=0.0)
+        log(f"10b {k}: loss {got['loss'][0]:.6f} (both ranks "
+            f"{other['loss'][0] == got['loss'][0]}) vs one process "
+            f"{want['loss'][0]:.6f}, rel {rel[0]:.2e}; grad norm rel "
+            f"{rel[1]:.2e}; worst gradient leaf {worst:.2e} (limit 1e-4); BN "
+            f"running stats max |d| {bn:.2e}; per rank B1 {got['launches']} "
+            f"launches, B1' {got['b1_backward']} calls")
+        if max(rel) > 1e-4 or other["loss"] != got["loss"] or bn > 1e-5:
+            fail(f"10b {k}: the two-rank step differs from one process")
+        if k == "p5" and (got["launches"] != T or got["b1_backward"] != T):
+            fail(f"10b: B1 {got['launches']} / B1' {got['b1_backward']} per "
+                 f"rank, expected {T}")
+        res[k] = {"loss_rel": rel[0], "grad_norm_rel": rel[1], "worst_leaf": worst,
+                  "bn_max_abs": bn, "launches_per_rank": got["launches"],
+                  "b1_backward_per_rank": got["b1_backward"]}
+
+    cfg, (frames, tmpl, valid, items) = mesh_engine_inputs()
+    K = MESH_ENGINE["K"]
+    reset_launch_counts()
+    want = engine.run_stream_chunked(iter(items), tmpl, valid, frames[0], chunk=K)
+    single_counts = launch_counts()
+    e0, e1 = r0["engine"], r1["engine"]
+    mism = float((e0["labels"] != want["labels"]).mean())
+    xdiff = float(np.abs(e0["assignments"] - want["assignments"]).max())
+    log(f"10c engine, 2 ranks at full p3 width (B=4, K={K}, "
+        f"{MESH_ENGINE['T']} frames): label mismatch vs one process {mism:.2e}, "
+        f"max |dX| {xdiff:.2e}, ranks equal "
+        f"{np.array_equal(e0['labels'], e1['labels'])}; per rank launches "
+        f"{e0['launches']} (one process: {single_counts}); refusal "
+        f"{e0['refusal']!r}")
+    if not (np.array_equal(e0["labels"], e1["labels"])
+            and e0["labels"].shape == want["labels"].shape):
+        fail("10c: the ranks' gathered labels differ or have the wrong shape")
+    # tests/test_parallel.py's rule between partitionings: labels may flip
+    # only on exact ties (mismatch < 1e-4), assignments to 1e-5
+    if mism > 1e-4 or xdiff > 1e-5:
+        fail(f"10c: label mismatch {mism:.2e} (limit 1e-4) or max |dX| "
+             f"{xdiff:.2e} (limit 1e-5) against one process")
+    if e0["refusal"] != "sequence batch 3 not divisible by mesh data axis 2":
+        fail(f"10c: a batch of 3 was not refused: {e0['refusal']!r}")
+    expect_launches("10c rank 0", e0["launches"],
+                    {"fused_pool_cost_match": MESH_ENGINE["T"],
+                     "fused_resolve_upsample": MESH_ENGINE["T"]})
+    res["engine"] = {"label_mismatch": mism, "max_abs_dX": xdiff,
+                     "launches_per_rank": {k: e0["launches"][k] for k in (
+                         "fused_pool_cost_match", "fused_resolve_upsample")}}
+
+    d0, want = r0["detector"], mesh_det_step()
+    rel = {k: abs(v - want["metrics"][k]) / max(abs(want["metrics"][k]), 1e-12)
+           for k, v in d0["metrics"].items() if k != "grad_norm"}
+    l2 = _rel_l2(d0["grads"], want["grads"])
+    log(f"10d detector, R-50-FPN 256x448 batch 2 on 2 ranks (one image each): "
+        f"loss {d0['metrics']['loss']:.6f} vs one process "
+        f"{want['metrics']['loss']:.6f}; worst part rel {max(rel.values()):.2e}; "
+        f"gradient relative L2 {l2:.2e} (limit 1e-5); per rank B4 "
+        f"{d0['launches']} launches, B4' {d0['b4_backward']} calls (one "
+        f"process: {want['launches']} / {want['b4_backward']})")
+    if max(rel.values()) > 1e-4 or not l2 < 1e-5:
+        fail("10d: the two-rank detector step differs from one process")
+    if d0["launches"] != 2 or d0["b4_backward"] != 2:
+        fail(f"10d: B4 {d0['launches']} / B4' {d0['b4_backward']} per rank, "
+             "expected 2 (one image per rank, one launch per head)")
+    res["detector"] = {"loss_rel": rel["loss"], "grad_rel_l2": l2,
+                       "launches_per_rank": d0["launches"],
+                       "b4_backward_per_rank": d0["b4_backward"]}
+    return res
+
+
+def profiling_debug_path(engine):
+    """Phase 10e: utils/profiling.trace around one p3 chunk (its Chrome
+    trace must name B1's and B2's kernels), StageTimer over the chunk's
+    stages, and utils/debug.checked raising on a NaN planted in B1's
+    input."""
+    import tempfile
+    import torch
+    from dmm_net_tpu_torch.kernels import fused_pool_cost_match
+    from dmm_net_tpu_torch.utils.debug import checked
+    from dmm_net_tpu_torch.utils.profiling import StageTimer, trace
+    cfg, (frames, tmpl, valid, items) = mesh_engine_inputs()
+    K = MESH_ENGINE["K"]
+    with tempfile.TemporaryDirectory() as tmp:
+        with trace(tmp):
+            engine.run_stream_chunked(iter(items[:K]), tmpl, valid, frames[0],
+                                      chunk=K)
+        text = (Path(tmp) / "trace.json").read_text()
+        size = len(text)
+    named = {k: k in text for k in B1_KERNELS + (B2_KERNEL,)}
+    timer = StageTimer()
+    t_feats = engine._template_features(engine._t(frames[0]), engine._t(tmpl))
+    state = engine.model.init_state(engine._t(tmpl))
+    for c in range(MESH_ENGINE["T"] // K):
+        chunk = items[c * K:(c + 1) * K]
+        with timer.stage("stage items") as st:
+            staged = [engine._t(np.stack([it[k] for it in chunk])) for k in
+                      ("frame", "prop_boxes", "prop_masks28", "prop_valid")]
+            st["sync"] = staged
+        with timer.stage("chunk step") as st:
+            labels, X, state = engine._chunk_step_compact(
+                *staged, t_feats, engine._t(valid), state)
+            st["sync"] = labels
+    report = timer.report()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    args = matcher_inputs(gen, 4, 16, 128, 448, 256, 4096)
+    args[0][0, 0, 0] = float("nan")
+    try:
+        checked(fused_pool_cost_match)(*args)
+        raised = None
+    except FloatingPointError as e:
+        raised = str(e)
+    log(f"10e profiling.trace: a {size}-byte Chrome trace naming {named}; "
+        f"StageTimer:\n{report}\n10e debug.checked on B1 with a NaN in emb: "
+        f"{raised!r}")
+    if not all(named.values()):
+        fail(f"10e: the trace does not name every B1/B2 kernel: {named}")
+    if set(timer.counts) != {"stage items", "chunk step"}:
+        fail(f"10e: StageTimer stages {timer.counts}")
+    if raised is None:
+        fail("10e: debug.checked did not raise on B1's NaN output")
+    return {"trace_bytes": size, "stages_ms": {k: 1e3 * v for k, v in
+                                               timer.totals.items()}}
+
+
+def torchvision_resnet_state_dict(rng, stage_sizes=(3, 4, 6, 3), width=64):
+    """A seeded bottleneck ResNet state_dict in torchvision's layout."""
+    sd = {}
+
+    def conv(name, cin, cout, k):
+        sd[f"{name}.weight"] = (rng.randn(cout, cin, k, k) * 0.05).astype(np.float32)
+
+    def bn(name, c):
+        sd[f"{name}.weight"] = (rng.rand(c) + 0.5).astype(np.float32)
+        sd[f"{name}.bias"] = (rng.randn(c) * 0.1).astype(np.float32)
+        sd[f"{name}.running_mean"] = (rng.randn(c) * 0.1).astype(np.float32)
+        sd[f"{name}.running_var"] = (rng.rand(c) + 0.5).astype(np.float32)
+
+    conv("conv1", 3, width, 7)
+    bn("bn1", width)
+    cin = width
+    for stage, n in enumerate(stage_sizes, start=1):
+        planes = width * 2 ** (stage - 1)
+        for j in range(n):
+            tp = f"layer{stage}.{j}"
+            for k, (a, b, ks) in enumerate(((cin, planes, 1), (planes, planes, 3),
+                                            (planes, planes * 4, 1)), start=1):
+                conv(f"{tp}.conv{k}", a, b, ks)
+                bn(f"{tp}.bn{k}", b)
+            if j == 0:
+                conv(f"{tp}.downsample.0", cin, planes * 4, 1)
+                bn(f"{tp}.downsample.1", planes * 4)
+            cin = planes * 4
+    return sd
+
+
+def torchvision_maskrcnn_state_dict(seed, num_classes=81):
+    """A seeded ``maskrcnn_resnet50_fpn`` state_dict in torchvision's layout
+    (numpy values)."""
+    rng = np.random.RandomState(seed)
+    sd = {f"backbone.body.{k}": v
+          for k, v in torchvision_resnet_state_dict(rng).items()}
+
+    def layer(name, shape):
+        sd[f"{name}.weight"] = (rng.randn(*shape) * 0.05).astype(np.float32)
+        sd[f"{name}.bias"] = (rng.randn(shape[1] if "conv5_mask" in name
+                                        else shape[0]) * 0.01).astype(np.float32)
+
+    for i, c in enumerate((256, 512, 1024, 2048)):
+        layer(f"backbone.fpn.inner_blocks.{i}", (256, c, 1, 1))
+        layer(f"backbone.fpn.layer_blocks.{i}", (256, 256, 3, 3))
+    layer("rpn.head.conv", (256, 256, 3, 3))
+    layer("rpn.head.cls_logits", (3, 256, 1, 1))
+    layer("rpn.head.bbox_pred", (12, 256, 1, 1))
+    layer("roi_heads.box_head.fc6", (1024, 7 * 7 * 256))
+    layer("roi_heads.box_head.fc7", (1024, 1024))
+    layer("roi_heads.box_predictor.cls_score", (num_classes, 1024))
+    layer("roi_heads.box_predictor.bbox_pred", (num_classes * 4, 1024))
+    for i in range(1, 5):
+        layer(f"roi_heads.mask_head.mask_fcn{i}", (256, 256, 3, 3))
+    layer("roi_heads.mask_predictor.conv5_mask", (256, 256, 2, 2))   # (in, out)
+    layer("roi_heads.mask_predictor.mask_fcn_logits", (num_classes, 256, 1, 1))
+    return sd
+
+
+def examples_importers_path(tmp):
+    """Phase 10f: examples/train_synthetic_torch.py (the loss falls),
+    infer_demo_torch.py on B1 and B2 (the matcher-aggregated J&F within 0.01
+    of the JAX example's), matcher_only_torch.py (the p1 matcher on B1:
+    accuracy over 0.9, B1 once per frame), train_and_eval_synthetic_torch.py
+    --mrcnn for a few steps on a seeded detector's detections (B4 twice per
+    detected frame), and a seeded torchvision-layout Mask R-CNN state dict
+    through tools/import_maskrcnn_weights_torch.py into the full-width
+    detector (R-50-FPN, 81 classes, 256x448), whose forward runs B4."""
+    import importlib
+    import importlib.util
+    import torch
+    from dmm_net_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from dmm_net_tpu_torch.models.proposal import MaskRCNN
+    from dmm_net_tpu_torch.weights import load_flax_variables
+
+    def example(name):
+        spec = importlib.util.spec_from_file_location(
+            name, ROOT / "examples" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        return mod
+
+    res = {}
+    reset_launch_counts()
+    r = example("train_synthetic_torch").main(["--steps", "20", "--set",
+                                                "matching.use_pallas=true"])
+    res["train_synthetic"] = {"first_loss": r["losses"][0],
+                              "last_loss": r["losses"][-1],
+                              "step_ms": r["step_ms"],
+                              "launches": launch_counts()["fused_pool_cost_match"]}
+    log(f"10f train_synthetic_torch.py: loss {r['losses'][0]:.4f} -> "
+        f"{r['losses'][-1]:.4f} in 20 steps, {r['step_ms']:.1f} ms per step, "
+        f"B1 {res['train_synthetic']['launches']} launches")
+    if not r["losses"][-1] < r["losses"][0]:
+        fail("10f: train_synthetic_torch.py's loss did not fall")
+
+    reset_launch_counts()
+    r = example("infer_demo_torch").main(["--out", str(tmp / "demo"), "--set",
+                                           "matching.use_pallas=true"])
+    counts = launch_counts()
+    res["infer_demo"] = {"aggregated_jf": r["aggregated"]["J&F"],
+                         "oracle_jf": r["oracle"]["J&F"],
+                         "jax_aggregated_jf": JAX_INFER_DEMO_AGG_JF,
+                         "launches": {k: counts[k] for k in (
+                             "fused_pool_cost_match", "fused_resolve_upsample")}}
+    log(f"10f infer_demo_torch.py on B1/B2: matcher-aggregated J&F "
+        f"{r['aggregated']['J&F']:.4f} (the JAX example's "
+        f"{JAX_INFER_DEMO_AGG_JF}), proposal ceiling {r['oracle']['J&F']:.4f}, "
+        f"launches {res['infer_demo']['launches']}")
+    if abs(r["aggregated"]["J&F"] - JAX_INFER_DEMO_AGG_JF) > 0.01:
+        fail("10f: infer_demo_torch.py's aggregated J&F is not the JAX "
+             "example's")
+
+    reset_launch_counts()
+    r = example("matcher_only_torch").main(["--fixtures",
+                                             str(tmp / "fixtures.npz")])
+    n = launch_counts()["fused_pool_cost_match"]
+    res["matcher_only"] = {"accuracy": r["accuracy"],
+                           "ms_per_frame": r["ms_per_frame"], "launches": n}
+    log(f"10f matcher_only_torch.py on B1: accuracy {r['accuracy']:.3f}, "
+        f"{r['ms_per_frame']:.3f} ms per frame (host clock), B1 {n} launches")
+    if n != 8 or not r["accuracy"] > 0.9:
+        fail(f"10f: matcher_only_torch.py accuracy {r['accuracy']:.3f} or "
+             f"{n} B1 launches (expected 8)")
+
+    det_file = tmp / "det64.msgpack"
+    importlib.import_module("train_proposal_torch").main(
+        ["--steps", "0", "--image-size", "64", "64", "--num-classes", "4",
+         "--save", str(det_file), "--logdir", str(tmp / "det_log")])
+    reset_launch_counts()
+    r = example("train_and_eval_synthetic_torch").main(
+        ["--steps", "5", "--distinct-batches", "2", "--min-jf", "0",
+         "--mrcnn", str(det_file)])
+    n = launch_counts()["roi_align"]
+    res["mrcnn_example"] = {"steps": r["steps"], "final_loss": r["final_loss"],
+                            "roi_align_launches": n}
+    log(f"10f train_and_eval_synthetic_torch.py --mrcnn: {r['steps']} steps on "
+        f"detector proposals, last loss {r['final_loss']:.4f}, B4 {n} launches "
+        "(2 batches x 4 clips x 3 frames x 2 heads)")
+    if r["steps"] != 5 or n != 48 or not np.isfinite(r["final_loss"]):
+        fail("10f: train_and_eval_synthetic_torch.py --mrcnn did not run")
+
+    spec = importlib.util.spec_from_file_location(
+        "import_maskrcnn_weights_torch",
+        ROOT / "tools" / "import_maskrcnn_weights_torch.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    params, stats = tool.load_torchvision_maskrcnn(
+        torchvision_maskrcnn_state_dict(7601))
+    det = MaskRCNN(image_size=(256, 448), num_classes=81, device="cuda")
+    load_flax_variables(det, {"params": params, "batch_stats": stats})
+    x = torch.rand(1, 3, 256, 448, device="cuda",
+                   generator=torch.Generator(device="cuda").manual_seed(0))
+    reset_launch_counts()
+    with torch.no_grad():
+        out = det(x)
+    torch.cuda.synchronize()
+    n = launch_counts()["roi_align"]
+    finite = all(bool(torch.isfinite(out[k]).all()) for k in ("boxes", "scores"))
+    res["importer"] = {"roi_align_launches": n, "detections": int(out["valid"].sum())}
+    log(f"10f a seeded torchvision-layout Mask R-CNN through the importer: "
+        f"full-width forward, {res['importer']['detections']} detections, "
+        f"finite {finite}, B4 {n} launches")
+    if n != 2 or not finite:
+        fail("10f: the imported detector's forward did not run on B4")
+    return res
+
+
 def main() -> int:
     if not (ROOT / "dmm_net_tpu_torch" / "csrc").is_dir():
         fail("dmm_net_tpu_torch/ not found next to chip_smoke.py; run it from "
@@ -2303,6 +2968,10 @@ def main() -> int:
         learn_file, learn_counts, learn_bwd, learn = learning_path(tmp)
         system, system_launches = full_system_path(learn_file)
     dcn_counts, dcn_bwd, dcn = dcn_path()
+    mesh = {"one_rank_10a": mesh_one_rank_path(), **mesh_two_rank_path(engine)}
+    prof10 = profiling_debug_path(engine)
+    with tempfile.TemporaryDirectory() as tmp:
+        ex10 = examples_importers_path(Path(tmp))
 
     def by_path(k):
         return {"p3_stream": counts[k], "legacy_p3": legacy_launches[k],
@@ -2315,12 +2984,33 @@ def main() -> int:
                 "ckpt_train_kernels": ckpt_train_launches["kernels"][k],
                 "full_system_kernels_9e": system_launches["kernels"][k]}
 
+    def mesh_by_path(k):
+        """Phase 10's launches; a rank of 10b-10d counts its own."""
+        b1 = {"mesh_p5_train_1rank_10a": mesh["one_rank_10a"]["launches"],
+              "mesh_p5_train_2rank_10b_per_rank": mesh["p5"]["launches_per_rank"],
+              "mesh_engine_10c_per_rank":
+                  mesh["engine"]["launches_per_rank"]["fused_pool_cost_match"],
+              "train_synthetic_10f": ex10["train_synthetic"]["launches"],
+              "infer_demo_10f":
+                  ex10["infer_demo"]["launches"]["fused_pool_cost_match"],
+              "matcher_only_10f": ex10["matcher_only"]["launches"]}
+        b2 = {"mesh_engine_10c_per_rank":
+                  mesh["engine"]["launches_per_rank"]["fused_resolve_upsample"],
+              "infer_demo_10f":
+                  ex10["infer_demo"]["launches"]["fused_resolve_upsample"]}
+        b4 = {"mesh_detector_10d_per_rank": mesh["detector"]["launches_per_rank"],
+              "mrcnn_example_10f": ex10["mrcnn_example"]["roi_align_launches"],
+              "importer_10f": ex10["importer"]["roi_align_launches"]}
+        return {"fused_pool_cost_match": b1, "fused_resolve_upsample": b2,
+                "roi_align": b4}[k]
+
     kernels = [
         dict(name="fused_pool_cost_match", route="cuda",
              source="dmm_net_tpu_torch/csrc/matcher.cu",
              replaces="dmm_net_tpu/kernels/matcher.py:262",
              launches=counts["fused_pool_cost_match"], shape="p3 B=16",
-             launches_by_path=by_path("fused_pool_cost_match"),
+             launches_by_path={**by_path("fused_pool_cost_match"),
+                               **mesh_by_path("fused_pool_cost_match")},
              library_ms=None, batch4={k: b1_b4[k] for k in (
                  "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
                  "launch_ms", "sinkhorn_iter_ms")},
@@ -2332,7 +3022,11 @@ def main() -> int:
                  replaces="dmm_net_tpu/kernels/matcher.py:302",
                  calls=p5_bwd_calls,
                  calls_by_path={"p5_train": p5_bwd_calls,
-                                "ckpt_train_kernels": ckpt_train_bwd_calls},
+                                "ckpt_train_kernels": ckpt_train_bwd_calls,
+                                "mesh_p5_train_1rank_10a":
+                                    mesh["one_rank_10a"]["b1_backward"],
+                                "mesh_p5_train_2rank_10b_per_rank":
+                                    mesh["p5"]["b1_backward_per_rank"]},
                  shape="p5_train B=4 M=8 N=64 P=448 D=256 Pc=4096, epsilon 0.03",
                  note="ms: the backward alone (the plain recompute and its "
                       "VJP) after B1's kernel forward; plain_ms: the "
@@ -2343,8 +3037,9 @@ def main() -> int:
              source="dmm_net_tpu_torch/csrc/resolve.cu",
              replaces="dmm_net_tpu/kernels/resolve.py:117",
              launches=counts["fused_resolve_upsample"], shape="p3 B=16",
-             launches_by_path={k: v for k, v in by_path(
+             launches_by_path={**{k: v for k, v in by_path(
                  "fused_resolve_upsample").items() if "train" not in k},
+                 **mesh_by_path("fused_resolve_upsample")},
              library_ms=None, batch4={k: b2_b4[k] for k in (
                  "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
                  "valid_slots")}, **b2),
@@ -2368,7 +3063,8 @@ def main() -> int:
                                "learning_9d": learn_counts["roi_align"],
                                **{f"full_system_{k}_9e": v["roi_align"]
                                   for k, v in system_launches.items()},
-                               "dcn_9f": dcn_counts["roi_align"]},
+                               "dcn_9f": dcn_counts["roi_align"],
+                               **mesh_by_path("roi_align")},
              # B4' has no kernel of its own: its numbers ride on B4's entry
              backward=dict(
                  name="B4' (_MultilevelRoiAlign.backward)",
@@ -2377,7 +3073,9 @@ def main() -> int:
                  replaces="dmm_net_tpu/models/proposal/maskrcnn.py:96",
                  calls=r50_bwd,
                  calls_by_path={"r50_train_9b": r50_bwd, "train_steps_9c": steps9c_bwd,
-                                "learning_9d": learn_bwd, "dcn_9f": dcn_bwd},
+                                "learning_9d": learn_bwd, "dcn_9f": dcn_bwd,
+                                "mesh_detector_10d_per_rank":
+                                    mesh["detector"]["b4_backward_per_rank"]},
                  shape="per train image: box head K=32 -> 7x7 + mask head K=32 "
                        "-> 14x14, C=256, 256x448 pyramid",
                  note="ms: the backward alone (the plain recompute on all four "
@@ -2418,7 +3116,9 @@ def main() -> int:
                       "full_system": system,
                       "jax_full_system_planted_jf": JAX_FULL_SYSTEM_PLANTED_JF,
                       "full_system_floors": FULL_SYSTEM_FLOORS,
-                      "dcn": dcn}), flush=True)
+                      "dcn": dcn, "mesh_10a_10d": mesh,
+                      "profiling_10e": prof10, "examples_10f": ex10}),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": count}}), flush=True)

@@ -90,6 +90,17 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// Clamps that keep a NaN, as the plain version's clamp_min / clamp_max and
+// the JAX package's jnp.maximum / jnp.minimum do: fmaxf / fminf return the
+// other operand, which would turn a NaN in an input into a finite X.
+__device__ __forceinline__ float nan_max(float a, float b) {
+  return (a != a || a > b) ? a : b;
+}
+
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return (a != a || a < b) ? a : b;
+}
+
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
@@ -187,7 +198,7 @@ matcher_pool_kernel(const float* __restrict__ emb,          // (B, P, D)
     __syncthreads();
   }
   if (i < nrow) {
-    const float den = fmaxf(area, 1e-6f);
+    const float den = nan_max(area, 1e-6f);
     float* o = pf + ((size_t)b * N + n0 + i) * D + d0;
 #pragma unroll
     for (int u = 0; u < 4; ++u)
@@ -403,7 +414,7 @@ __global__ void matcher_sinkhorn_kernel(const float* __restrict__ cos_in,      /
     const int m = e / N, n = e % N;
     float inter = 0.f;
     for (int y = 0; y < S; ++y) inter += inter_part[((size_t)b * S + y) * M * N + e];
-    const float uni = fmaxf(s_at[m] + s_ap[n] - inter, 1e-6f);
+    const float uni = nan_max(s_at[m] + s_ap[n] - inter, 1e-6f);
     const float iou = inter / uni;
     const float c = iou_weight * (1.f - iou) +
                     (1.f - iou_weight) * (1.f - cos_in[(size_t)b * M * N + e]);
@@ -430,7 +441,7 @@ __global__ void matcher_sinkhorn_kernel(const float* __restrict__ cos_in,      /
 #pragma unroll
       for (int i = 0; i < NPL; ++i) s += ex2(z[i] - mx);
       s = warp_sum(s);
-      if (lane == 0) s_f[m] = s_rv[m] > 0.5f ? -eps * LN2 * (mx + lg2(fmaxf(s, 1e-38f))) : 0.f;
+      if (lane == 0) s_f[m] = s_rv[m] > 0.5f ? -eps * LN2 * (mx + lg2(nan_max(s, 1e-38f))) : 0.f;
     }
   };
 
@@ -456,7 +467,8 @@ __global__ void matcher_sinkhorn_kernel(const float* __restrict__ cos_in,      /
       for (int m = q; m < M; m += G) s += ex2((s_f[m] - s_c[m * ldc + nn]) * sc - mx);
       for (int o = G >> 1; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
       if (q == 0 && n < N)
-        s_g[n] = s_cv[n] > 0.5f ? fminf(0.f, -eps * LN2 * (mx + lg2(fmaxf(s, 1e-38f)))) : 0.f;
+        s_g[n] = s_cv[n] > 0.5f ? nan_min(-eps * LN2 * (mx + lg2(nan_max(s, 1e-38f))), 0.f)
+                                : 0.f;
     }
     __syncthreads();
   }
@@ -468,7 +480,7 @@ __global__ void matcher_sinkhorn_kernel(const float* __restrict__ cos_in,      /
     const int m = e / N, n = e % N;
     float v = 0.f;
     if (s_rv[m] > 0.5f && s_cv[n] > 0.5f)
-      v = expf(fminf((s_f[m] + s_g[n] - s_c[m * ldc + n]) / epsilon, 30.f));
+      v = expf(nan_min((s_f[m] + s_g[n] - s_c[m * ldc + n]) / epsilon, 30.f));
     x_b[e] = v;
   }
 }

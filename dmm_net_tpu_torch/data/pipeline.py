@@ -18,7 +18,12 @@ Counterpart of the JAX package's data/pipeline.py:
     again before the consumer's work on it is done. On the CPU the arrays
     become tensors and nothing is pinned;
   * an exception in the load function or in a copy is raised in the
-    consumer; nothing falls back to the host.
+    consumer; nothing falls back to the host;
+  * with a data-parallel mesh, every rank loads the same global batch (the
+    same seed, the same augmentation) and keeps its own rows before they
+    are pinned and staged, as the JAX package's ``sharding=`` places each
+    device's shard. Splitting the loading itself over the ranks is later
+    work.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import numpy as np
 import torch
 
 from dmm_net_tpu_torch import resolve_device
+from dmm_net_tpu_torch.parallel.mesh import Mesh, shard_batch
 
 # ImageNet statistics: the backbone is trained on ImageNet-normalised inputs.
 IMAGENET_MEAN = np.asarray([0.485, 0.456, 0.406], np.float32)
@@ -70,14 +76,17 @@ class Prefetcher:
     """Bounded look-ahead: a producer thread maps ``load_fn`` over ``items``
     and stages the results on ``device``; iterating yields them in order,
     already resident there. Runs on CUDA unless ``device`` says otherwise.
+    With ``mesh``, each loaded batch is cut to the rank's rows of axis 0
+    (``parallel.shard_batch``) and staged on the rank's device.
 
     Iterate once. Leaving the loop early stops the producer (``close``)."""
 
     def __init__(self, items: Iterable, load_fn: Callable[[object], dict],
-                 depth: int = 2, device=None):
+                 depth: int = 2, device=None, mesh: Optional[Mesh] = None):
         self._items = iter(items)
-        self._load = load_fn
-        self._device = resolve_device(device)
+        self._load = (load_fn if mesh is None
+                      else lambda it: shard_batch(load_fn(it), mesh))
+        self._device = resolve_device(device if mesh is None else mesh.device)
         if self._device.type == "cuda" and self._device.index is None:
             self._device = torch.device("cuda", torch.cuda.current_device())
         self._q: queue.Queue = queue.Queue(maxsize=max(depth, 1))

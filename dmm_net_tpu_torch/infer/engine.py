@@ -11,7 +11,12 @@ and resolve overlaps into uint8 labels (fused upsample/argmax kernel for
 mask-grid logits). With ``matching.decode="hungarian"`` the step runs in two
 halves around a host-side Hungarian decode of X (``run_sequence`` only).
 
-Not ported: the multi-device mesh (ROADMAP.md §A, item 9).
+On a data-parallel mesh (parallel/mesh.py) the caller passes the whole
+sequence batch to ``run_sequence_chunked`` or ``run_stream_chunked`` on
+every rank; each rank runs its own rows through the same frame step (the
+sequences are independent, so the step needs no collective) and the labels
+and assignments are gathered back, so every rank returns the whole batch,
+as the JAX package returns a global array.
 """
 
 from __future__ import annotations
@@ -34,6 +39,8 @@ from dmm_net_tpu_torch.models.dmm import (DMMNet, _mask_dtype, _to_mask_grid,
 from dmm_net_tpu_torch.models.proposal.maskrcnn import paste_masks
 from dmm_net_tpu_torch.ops.matching import hard_assignment_hungarian
 from dmm_net_tpu_torch.ops.resize import resize
+from dmm_net_tpu_torch.parallel.mesh import (Mesh, all_gather_rows, replicate_,
+                                             shard_batch)
 from dmm_net_tpu_torch.weights import load_flax_variables
 
 
@@ -97,18 +104,15 @@ def bucket_objects(count: int, m_max: int) -> int:
     return m_max
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md §A, "
-                               f"{item})")
-
-
 def _png_chunk(kind: bytes, data: bytes) -> bytes:
     return (struct.pack(">I", len(data)) + kind + data
             + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
 
 
 class InferenceEngine:
-    """Streaming per-sequence inference on one device.
+    """Streaming per-sequence inference on one device, or on each rank of a
+    data-parallel ``mesh`` (then on the rank's device, with the model's
+    weights broadcast from rank 0).
 
     ``model``: a DMMNet; built from ``cfg`` with random weights from
     ``seed`` when omitted. ``variables``: optional JAX-package checkpoint
@@ -117,16 +121,20 @@ class InferenceEngine:
 
     def __init__(self, cfg: Config, model: Optional[DMMNet] = None,
                  variables=None, update_templates: bool = True,
-                 bucket_templates: bool = True, mesh=None, device=None,
-                 seed: int = 0):
-        if mesh is not None:
-            raise _not_ported("the multi-device mesh", "item 9")
+                 bucket_templates: bool = True, mesh: Optional[Mesh] = None,
+                 device=None, seed: int = 0):
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f"mesh: a parallel.mesh.Mesh, not "
+                            f"{type(mesh).__name__}")
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(device if mesh is None else mesh.device)
         self.model = model if model is not None else DMMNet(
             cfg, device=self.device, seed=seed)
         if variables is not None:
             load_flax_variables(self.model, variables)
+        if mesh is not None:
+            replicate_(self.model, mesh)
         self.update_templates = update_templates
         self.bucket_templates = bucket_templates
         # host seconds spent in the Hungarian decode (scipy), summed over steps
@@ -137,6 +145,18 @@ class InferenceEngine:
         if isinstance(x, torch.Tensor):
             return x.to(self.device)
         return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+
+    def _check_divisible(self, batch: int) -> None:
+        if self.mesh is not None and batch % self.mesh.world:
+            raise ValueError(f"sequence batch {batch} not divisible by mesh "
+                             f"data axis {self.mesh.world}")
+
+    def _rows(self, x, axis: int = 0):
+        """This rank's rows of the sequence-batch ``axis`` (all of them
+        without a mesh)."""
+        if self.mesh is None or x is None:
+            return x
+        return x[(slice(None),) * axis + (self.mesh.rows(x.shape[axis]),)]
 
     def _bucket_slice(self, tmpl_masks, tmpl_valid, extras=()):
         """Slice template arrays down to the active-object bucket (valid
@@ -271,7 +291,11 @@ class InferenceEngine:
         "prop_valid"} or the compact {"frame", "prop_boxes", "prop_masks28",
         "prop_valid"}. Returns labels (T, B, H, W) uint8 and assignments
         (T, B, M, N) padded back to M_max. With ``matching.decode=
-        "hungarian"`` every item must carry full-grid masks."""
+        "hungarian"`` every item must carry full-grid masks. Not on a mesh:
+        the sharded paths are the chunked ones."""
+        if self.mesh is not None:
+            raise ValueError("run_sequence does not run on a mesh (the "
+                             "sharded paths are the chunked ones)")
         hungarian = self.cfg.matching.decode == "hungarian"
         M_full = tmpl_valid.shape[1]
         tmpl_masks, tmpl_valid, _ = self._bucket_slice(
@@ -301,10 +325,15 @@ class InferenceEngine:
             assign_out.append(X)
         return self._gather(labels_out, assign_out, M_full)
 
-    @staticmethod
-    def _gather(labels_out, assign_out, M_full):
-        labels = torch.stack(labels_out).cpu().numpy()
-        assignments = torch.stack(assign_out).cpu().numpy()
+    def _gather(self, labels_out, assign_out, M_full):
+        """(T, B, ...) host arrays of the steps' labels and assignments, the
+        whole batch's on every rank of a mesh, assignments padded back to
+        ``M_full`` slots."""
+        labels, X = torch.stack(labels_out), torch.stack(assign_out)
+        if self.mesh is not None:
+            labels, X = (all_gather_rows(t.transpose(0, 1), self.mesh)
+                         .transpose(0, 1) for t in (labels, X))
+        labels, assignments = labels.cpu().numpy(), X.cpu().numpy()
         if assignments.shape[2] < M_full:      # pad bucketed slots back
             assignments = np.pad(assignments, ((0, 0), (0, 0),
                                                (0, M_full - assignments.shape[2]),
@@ -328,8 +357,12 @@ class InferenceEngine:
         be shorter), no object bucketing. frames (T, B, H, W, 3); prop_masks
         (T, B, N, H, W) full-grid; prop_valid (T, B, N); tmpl_masks (B, M,
         H, W); tmpl_valid (B, M). One chunk of inputs is on the device at a
-        time."""
+        time. On a mesh B must divide over its ranks."""
         self._reject_hungarian("run_sequence_chunked")
+        self._check_divisible(frames.shape[1])
+        frames, prop_masks, prop_valid = (self._rows(x, 1) for x in
+                                          (frames, prop_masks, prop_valid))
+        tmpl_masks, tmpl_valid = self._rows(tmpl_masks), self._rows(tmpl_valid)
         T = frames.shape[0]
         tmpl_masks, tmpl_valid = self._t(tmpl_masks), self._t(tmpl_valid)
         tmpl_feats = self._template_features(self._t(frames[0]), tmpl_masks)
@@ -354,12 +387,17 @@ class InferenceEngine:
         """Consume the per-frame item stream ``chunk`` frames at a time (only
         one chunk of proposals is host-resident). Mid-video objects: pass
         ``live_from`` (B, M) first-frame indices and ``tmpl_frames``
-        (B, M, H, W, 3) per-object template frames."""
+        (B, M, H, W, 3) per-object template frames. On a mesh B must divide
+        over its ranks; the object bucket is the whole batch's."""
         self._reject_hungarian("run_stream_chunked")
+        self._check_divisible(tmpl_valid.shape[0])
         M_full = tmpl_valid.shape[1]
         tmpl_masks, tmpl_valid, (live_from, tmpl_frames) = \
             self._bucket_slice(np.asarray(tmpl_masks), np.asarray(tmpl_valid),
                                extras=(live_from, tmpl_frames))
+        tmpl_masks, tmpl_valid, live_from, tmpl_frames, first_frame = (
+            self._rows(x) for x in (tmpl_masks, tmpl_valid, live_from,
+                                    tmpl_frames, first_frame))
         tmpl_masks, tmpl_valid = self._t(tmpl_masks), self._t(tmpl_valid)
         if tmpl_frames is not None:
             tmpl_feats = self._template_features_per_object(
@@ -403,7 +441,8 @@ class InferenceEngine:
             buf.clear()
 
         for item in frames_iter:
-            buf.append(item)
+            buf.append(item if self.mesh is None
+                       else shard_batch(item, self.mesh))
             if len(buf) == chunk:
                 flush()
         flush()

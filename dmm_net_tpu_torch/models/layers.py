@@ -19,6 +19,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from dmm_net_tpu_torch.parallel.mesh import all_reduce_sum
+
 
 class Conv(nn.Module):
     """Stride-s conv with "SAME"-style symmetric padding (k // 2 unless
@@ -77,7 +79,14 @@ class BatchNorm(nn.Module):
     the batch's are kept in ``batch_stats`` until the caller applies them
     with ``update_running_stats`` (flax's momentum 0.9 update, biased
     variance). So a forward pass that is recomputed for the backward
-    (``torch.utils.checkpoint``) cannot update them twice."""
+    (``torch.utils.checkpoint``) cannot update them twice.
+
+    With ``mesh`` set (a parallel.mesh.Mesh; ``train/loop.create_train_state``
+    sets it), the batch statistics are those of the global batch, as
+    flax's are under the JAX package's mesh: the sums of x and x^2 and the
+    count are all-reduced, differentiably, and the running statistics move
+    by the global values. A recomputed forward repeats its all-reduce, in
+    the same order on every rank."""
 
     def __init__(self, ch: int, dtype: torch.dtype = torch.float32,
                  eps: float = 1e-5, zero_scale: bool = False,
@@ -92,12 +101,22 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(ch))
         self.register_buffer("running_var", torch.ones(ch))
         self.batch_stats = None
+        self.mesh = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.float()
         if self.train_stats and self.training:
-            mean = x.mean(dim=(0, 2, 3))
-            var = ((x * x).mean(dim=(0, 2, 3)) - mean * mean).clamp_min(0.0)
+            if self.mesh is None:
+                mean = x.mean(dim=(0, 2, 3))
+                ex2 = (x * x).mean(dim=(0, 2, 3))
+            else:
+                C = x.shape[1]
+                count = x.new_full((1,), x.numel() // C)
+                sums = all_reduce_sum(torch.cat([x.sum(dim=(0, 2, 3)),
+                                                 (x * x).sum(dim=(0, 2, 3)),
+                                                 count]), self.mesh)
+                mean, ex2 = sums[:C] / sums[-1], sums[C:2 * C] / sums[-1]
+            var = (ex2 - mean * mean).clamp_min(0.0)
             self.batch_stats = (mean.detach(), var.detach())
         else:
             mean, var = self.running_mean, self.running_var

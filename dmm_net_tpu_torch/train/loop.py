@@ -12,6 +12,15 @@ cosine schedule, weight_decay))``, wrapped in ``MultiSteps`` when
 ``train.grad_accum > 1``: ``torch.optim.AdamW`` under a ``LambdaLR``, with
 optax's clip (no epsilon, unlike ``clip_grad_norm_``) and the gradient
 mean written out.
+
+On a data-parallel mesh (parallel/mesh.py) every rank holds the parameters,
+replicated from rank 0, and its own rows of the global batch. The loss is
+the rank's share of the global batch's (train/losses.py), train-mode
+BatchNorm normalises with the global batch statistics (models/layers.py),
+and the gradients are summed over the ranks with one flattened all-reduce
+before the clip and the update, so every rank applies the global gradient,
+as the JAX package's mesh step does. DistributedDataParallel is not used:
+``torch.autograd.grad`` bypasses the hooks it reduces on.
 """
 
 from __future__ import annotations
@@ -19,7 +28,7 @@ from __future__ import annotations
 import math
 import time
 from dataclasses import dataclass
-from typing import Dict, Iterable, List
+from typing import Dict, Iterable, List, Optional
 
 import numpy as np
 import torch
@@ -30,6 +39,7 @@ from dmm_net_tpu_torch.infer.engine import _grid_like
 from dmm_net_tpu_torch.models.dmm import DMMNet, FrameState
 from dmm_net_tpu_torch.models.layers import BatchNorm
 from dmm_net_tpu_torch.ops.resize import resize
+from dmm_net_tpu_torch.parallel.mesh import Mesh, all_reduce_sum_, replicate_
 from dmm_net_tpu_torch.train.losses import clip_loss
 from dmm_net_tpu_torch.weights import load_flax_variables
 
@@ -144,13 +154,22 @@ class TrainState:
 
 
 def create_train_state(cfg: Config, seed: int = 0, variables=None,
-                       device=None) -> TrainState:
+                       device=None, mesh: Optional[Mesh] = None) -> TrainState:
     """A training model from ``seed``, or from JAX-package variables
     ({"params", "batch_stats"}) through the weight bridge. Runs on CUDA
-    unless ``device`` says otherwise."""
+    unless ``device`` says otherwise; with ``mesh``, on the rank's device,
+    its parameters and buffers broadcast from rank 0 and its BatchNorms
+    taking global batch statistics."""
+    if mesh is not None:
+        device = mesh.device
     model = DMMNet(cfg, device=device, seed=seed, train=True)
     if variables is not None:
         load_flax_variables(model, variables)
+    if mesh is not None:
+        replicate_(model, mesh)
+        for m in model.modules():
+            if isinstance(m, BatchNorm):
+                m.mesh = mesh
     return TrainState(model=model, optimizer=Optimizer(model.parameters(), cfg))
 
 
@@ -161,7 +180,7 @@ def _discard_bn_batch_stats(model: DMMNet) -> None:
 
 
 def _clip_forward(model: DMMNet, batch: Dict[str, torch.Tensor],
-                  cfg: Config):
+                  cfg: Config, mesh: Optional[Mesh] = None):
     """Forward a clip batch; returns (loss, logits (B, T, M, H, W)).
 
     batch: frames (B, T, H, W, 3), prop_masks (B, T, N, H, W), prop_valid
@@ -177,7 +196,9 @@ def _clip_forward(model: DMMNet, batch: Dict[str, torch.Tensor],
     model, each frame's backbone normalises with its batch statistics and
     the running statistics take one momentum update per frame, applied
     after the frame's forward (not inside it, so that ``cfg.train.remat``'s
-    recomputation in the backward cannot apply it twice)."""
+    recomputation in the backward cannot apply it twice). With ``mesh``,
+    ``batch`` is this rank's rows and the loss its share of the global
+    batch's."""
     frames = batch["frames"]
     B, T = frames.shape[:2]
     tmpl_masks = batch["tmpl_masks"]
@@ -222,22 +243,29 @@ def _clip_forward(model: DMMNet, batch: Dict[str, torch.Tensor],
     loss_valid = batch.get("gt_valid", tmpl_valid)
     loss = clip_loss(logits, batch["gt_masks"], loss_valid.bool(),
                      bce_weight=cfg.train.loss_bce_weight,
-                     iou_weight=cfg.train.loss_iou_weight)
+                     iou_weight=cfg.train.loss_iou_weight, mesh=mesh)
     return loss, logits
 
 
-def make_train_step(cfg: Config):
+def make_train_step(cfg: Config, mesh: Optional[Mesh] = None):
     """step(state, batch) -> {"loss", "grad_norm"} (0-d tensors; grad_norm
-    is the global norm before clipping), updating ``state`` in place."""
+    is the global norm before clipping), updating ``state`` in place. With
+    ``mesh``, ``batch`` is this rank's rows (``parallel.shard_batch``); the
+    gradients and the loss shares are summed over the ranks in one
+    all-reduce, so both metrics are the global batch's on every rank."""
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         model = state.model
-        loss, _ = _clip_forward(model, batch, cfg)
+        loss, _ = _clip_forward(model, batch, cfg, mesh)
         params = state.optimizer.params
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         _discard_bn_batch_stats(model)        # left by remat's recompute
         grads = [torch.zeros_like(p) if g is None else g
                  for g, p in zip(grads, params)]
+        if mesh is not None:
+            loss = loss.detach().reshape(1)
+            all_reduce_sum_(grads + [loss], mesh)
+            loss = loss[0]
         g_norm = global_norm(grads)
         state.optimizer.update(grads)
         state.step += 1
@@ -255,19 +283,23 @@ def batch_to(batch: Dict, device) -> Dict[str, torch.Tensor]:
 
 def train_loop(cfg: Config, state: TrainState, batches: Iterable[dict],
                log_every: int = 10, writer=None, checkpointer=None,
-               on_step=None) -> TrainState:
+               on_step=None, mesh: Optional[Mesh] = None) -> TrainState:
     """Step over ``batches`` (already on the model's device, or numpy),
     logging every ``log_every`` steps to ``writer`` (jsonl) or stdout and
     checkpointing every ``cfg.train.checkpoint_every`` steps. ``on_step``,
-    if given, is called with (state, metrics) after every step."""
-    step_fn = make_train_step(cfg)
+    if given, is called with (state, metrics) after every step. With
+    ``mesh``, each batch is this rank's rows (``data/pipeline.Prefetcher``
+    with the mesh gives them); rank 0 alone logs and saves, and every rank
+    waits at a barrier after each save."""
+    step_fn = make_train_step(cfg, mesh)
+    lead = mesh is None or mesh.rank == 0
     device = state.model.device
     t0 = time.time()
     for i, batch in enumerate(batches):
         metrics = step_fn(state, batch_to(batch, device))
         if on_step is not None:
             on_step(state, metrics)
-        if (i + 1) % log_every == 0:
+        if lead and (i + 1) % log_every == 0:
             m = {k: float(v) for k, v in metrics.items()}
             m["steps_per_sec"] = log_every / (time.time() - t0)
             t0 = time.time()
@@ -277,6 +309,9 @@ def train_loop(cfg: Config, state: TrainState, batches: Iterable[dict],
                 print(f"step {state.step}: {m}", flush=True)
         if (checkpointer is not None
                 and (i + 1) % cfg.train.checkpoint_every == 0):
-            checkpointer.save(state)
+            if lead:
+                checkpointer.save(state)
+            if mesh is not None:
+                mesh.barrier()
     return state
 

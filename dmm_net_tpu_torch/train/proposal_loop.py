@@ -16,21 +16,27 @@ scales and biases included (they are flax ``params``).
 A batch is the JAX package's dict, numpy or tensors: images (B, H, W, 3)
 float in [0, 1], boxes (B, G, 4), labels (B, G), valid (B, G) bool and
 masks (B, G, H, W).
+
+On a data-parallel mesh (parallel/mesh.py) each rank takes its rows of the
+global batch: its loss is the sum of its images' losses over the global
+batch size, its share of the JAX package's mean over the batch, and the
+gradients and the shares are summed over the ranks with one all-reduce
+before the update. The detector's BatchNorm stays frozen.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from dmm_net_tpu_torch.infer.engine import _not_ported
 from dmm_net_tpu_torch.models.proposal.losses import (assign_proposals,
                                                       box_head_loss,
                                                       mask_head_loss,
                                                       rpn_loss)
 from dmm_net_tpu_torch.models.proposal.maskrcnn import MaskRCNN
+from dmm_net_tpu_torch.parallel.mesh import Mesh, all_reduce_sum_
 
 _PARTS = ("rpn_cls", "rpn_reg", "box_cls", "box_reg", "mask")
 
@@ -77,8 +83,11 @@ def proposal_image_loss(model: MaskRCNN, image, gt_boxes, gt_labels,
     return _image_loss(out, gt_boxes, gt_labels, gt_valid, gt_masks)
 
 
-def make_proposal_batch_loss(model: MaskRCNN):
-    """batch (proposal_batch_to's dict) -> (mean loss, mean of each part)."""
+def make_proposal_batch_loss(model: MaskRCNN, mesh: Optional[Mesh] = None):
+    """batch (proposal_batch_to's dict) -> (mean loss, mean of each part);
+    with ``mesh``, ``batch`` is this rank's rows and each value its share
+    of the global batch's mean."""
+    world = 1 if mesh is None else mesh.world
 
     def batch_loss(batch):
         outs = model.train_forward_batch(batch["images"].permute(0, 3, 1, 2))
@@ -89,8 +98,9 @@ def make_proposal_batch_loss(model: MaskRCNN):
             totals.append(t)
             for k in _PARTS:
                 parts[k].append(p[k])
-        return (torch.stack(totals).mean(),
-                {k: torch.stack(v).mean() for k, v in parts.items()})
+        n = len(totals) * world                 # the global batch
+        return (torch.stack(totals).sum() / n,
+                {k: torch.stack(v).sum() / n for k, v in parts.items()})
 
     return batch_loss
 
@@ -102,13 +112,16 @@ def make_proposal_optimizer(model: MaskRCNN, lr: float) -> torch.optim.AdamW:
 
 
 def make_proposal_train_step(model: MaskRCNN, optimizer: torch.optim.Optimizer,
-                             mesh=None):
+                             mesh: Optional[Mesh] = None):
     """step(batch) -> {"loss", "grad_norm", *parts} as 0-d tensors (read
     nothing back to the host): one update of ``model`` in place.
-    ``grad_norm`` is the global norm of the gradient before the update."""
-    if mesh is not None:
-        raise _not_ported("the multi-device mesh", "item 9")
-    batch_loss = make_proposal_batch_loss(model)
+    ``grad_norm`` is the global norm of the gradient before the update.
+    With ``mesh``, ``batch`` is this rank's rows (``parallel.shard_batch``)
+    and every value is the global batch's, on every rank; the parameters
+    must start equal on every rank (``parallel.replicate_``)."""
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh: a parallel.mesh.Mesh, not {type(mesh).__name__}")
+    batch_loss = make_proposal_batch_loss(model, mesh)
     params = [p for p in model.parameters() if p.requires_grad]
     if not params:
         raise ValueError("the detector has no trainable parameter: call "
@@ -117,6 +130,11 @@ def make_proposal_train_step(model: MaskRCNN, optimizer: torch.optim.Optimizer,
     def step(batch):
         loss, parts = batch_loss(batch)
         grads = torch.autograd.grad(loss, params)
+        if mesh is not None:
+            shares = torch.stack([loss.detach()] + [parts[k].detach()
+                                                   for k in _PARTS])
+            all_reduce_sum_(list(grads) + [shares], mesh)
+            loss, parts = shares[0], dict(zip(_PARTS, shares[1:]))
         for p, g in zip(params, grads):
             p.grad = g
         optimizer.step()

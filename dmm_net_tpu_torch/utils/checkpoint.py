@@ -236,8 +236,8 @@ def load_msgpack_ckpt(path: str) -> Tuple[Optional[Config], dict]:
     if os.path.isdir(path):
         raise ValueError(
             f"{path}: orbax checkpoint directories are not supported by the "
-            "port (ROADMAP.md §A, item 9); pass a flax msgpack blob or a "
-            "checkpoint written by the port's Checkpointer")
+            "port (ROADMAP.md §A, the no-port list); pass a flax msgpack "
+            "blob or a checkpoint written by the port's Checkpointer")
     with open(path, "rb") as f:
         blob = msgpack_restore(f.read())
     if not isinstance(blob, dict) or "variables" not in blob:

@@ -9,9 +9,12 @@ Usage: python examples/train_and_eval_synthetic_torch.py [--steps 300]
            [--size 64] [--set matching.use_pallas=true] [--device cpu]
 
 Expected: decoder J&F rises from ~0 (untrained) to > 0.7: the decoder
-learns to refine the matcher-aggregated masks. Runs on CUDA unless
---device says otherwise. Not ported: --mrcnn (training on detector
-proposals, ROADMAP.md §A, item 9).
+learns to refine the matcher-aggregated masks. --mrcnn <msgpack> trains on
+a Mask R-CNN's detections in place of the planted proposals: every frame of
+every training batch goes through the detector (its flax msgpack, as
+train_proposal_torch.py --save writes it), and its pasted, thresholded
+masks, ordered by score, replace the batch's proposals on the device.
+Runs on CUDA unless --device says otherwise.
 """
 
 import argparse
@@ -52,7 +55,12 @@ def main(argv=None):
                     "(served by infer_torch.py --ckpt); named *.unverified "
                     "until the J&F gate passes")
     ap.add_argument("--mrcnn", default=None,
-                    help="train on detector proposals (not ported)")
+                    help="train on detector proposals: replace the planted "
+                    "proposals of every training batch with detections of "
+                    "this Mask R-CNN msgpack (the reference trains on "
+                    "cached Mask R-CNN proposals)")
+    ap.add_argument("--mrcnn-backbone", default="resnet18")
+    ap.add_argument("--mrcnn-classes", type=int, default=4)
     ap.add_argument("--set", nargs="*", default=[],
                     help="dotted config overrides, e.g. "
                     "matching.use_pallas=true")
@@ -73,10 +81,6 @@ def main(argv=None):
                     "sources")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if args.mrcnn:
-        raise SystemExit("--mrcnn (training on Mask R-CNN proposals) is not "
-                         "ported to the PyTorch package yet (see ROADMAP.md "
-                         "§A, item 9)")
 
     import dataclasses
 
@@ -129,6 +133,13 @@ def main(argv=None):
         num_objects=args.objects, num_proposals=cfg.matching.max_proposals,
         pad_objects=cfg.matching.max_templates), device)
         for s in range(args.distinct_batches)]
+    if args.mrcnn:
+        t_det = time.time()
+        det = load_detector(args, (S, SW), cfg.matching.max_proposals, device)
+        for b in batches:
+            b["prop_masks"], b["prop_valid"] = detect_batch(det, b["frames"])
+        print(f"replaced planted proposals with detector output for "
+              f"{len(batches)} batches in {time.time() - t_det:.0f}s")
 
     def sync():
         if device.type == "cuda":
@@ -242,6 +253,44 @@ def main(argv=None):
         sys.exit(1)
     print("OK")
     return result
+
+
+def load_detector(args, image_size, N: int, device):
+    """The --mrcnn detector: N detections a frame, score threshold 0.05."""
+    from dmm_net_tpu_torch.models.proposal.maskrcnn import MaskRCNN
+    from dmm_net_tpu_torch.utils.checkpoint import msgpack_restore
+    from dmm_net_tpu_torch.weights import load_flax_variables
+
+    det = MaskRCNN(image_size=image_size, backbone_name=args.mrcnn_backbone,
+                   num_classes=args.mrcnn_classes, score_thresh=0.05,
+                   max_detections=N, device=device)
+    with open(args.mrcnn, "rb") as f:
+        load_flax_variables(det, msgpack_restore(f.read()))
+    return det
+
+
+def detect_batch(det, frames):
+    """The detector's detections on every frame of a clip batch (B, T, H, W,
+    3) on its device: (prop_masks (B, T, N, H, W) binary float32,
+    prop_valid (B, T, N)), ordered by score, the invalid last."""
+    import torch
+
+    from dmm_net_tpu_torch.models.proposal.maskrcnn import paste_masks
+
+    B, T, H, W = frames.shape[:4]
+    N = det.max_detections
+    pm, pv = [], []
+    with torch.no_grad():
+        for img in frames.reshape(B * T, H, W, -1):
+            out = det(img.permute(2, 0, 1)[None].float())
+            full = paste_masks(out["masks"], out["boxes"], out["valid"], (H, W))
+            order = torch.argsort(-torch.where(
+                out["valid"], out["scores"],
+                torch.full_like(out["scores"], -float("inf"))), stable=True)
+            pm.append((full[order] > 0.5).float())
+            pv.append(out["valid"][order])
+    return (torch.stack(pm).reshape(B, T, N, H, W),
+            torch.stack(pv).reshape(B, T, N))
 
 
 if __name__ == "__main__":

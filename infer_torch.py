@@ -9,6 +9,7 @@ Usage:
                         --ytvos-root /data/YouTubeVOS --proposal-dir /data/props \
                         [--out results/p4]
   python infer_torch.py ... --device cpu
+  python infer_torch.py ... --data-parallel
 
 A checkpoint carries its own model config, which becomes the base config;
 --set overrides apply on top. --ckpt takes a msgpack blob {"config",
@@ -26,7 +27,16 @@ sequence and overall, scored at the annotation's native resolution
 YouTube-VOS: the server's submission tree, Annotations/<vid>/<stem>.png at
 the video's original size for every frame meta.json lists; objects that
 appear mid-video are live from their first annotated frame. Runs on CUDA
-unless --device says otherwise. Not ported: --data-parallel (ROADMAP.md §A).
+unless --device says otherwise.
+
+--data-parallel runs the sequences in groups of one per rank, a rank per
+visible card (as infer.py takes every JAX device; on the CPU the ranks of
+an initialised group), the last group padded with duplicates: each rank
+runs its sequence through the chunked engine and the labels are gathered
+(infer/engine.py). Rank 0 alone scores and writes. Under torchrun's
+environment the script joins torchrun's group; otherwise it starts its
+ranks itself. --per-frame and --data-parallel are exclusive, as in
+infer.py.
 """
 
 import argparse
@@ -43,11 +53,6 @@ PER_FRAME_LIVE_FROM = ("--per-frame does not support mid-video objects "
                        "default chunked dispatch")
 
 
-def _not_ported(what: str) -> SystemExit:
-    return SystemExit(f"{what} is not ported to the PyTorch package yet "
-                      "(see ROADMAP.md §A)")
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--preset", default="p3_multi_object")
@@ -60,7 +65,8 @@ def main(argv=None):
                     help="frames per chunk (chunked dispatch)")
     ap.add_argument("--per-frame", action="store_true",
                     help="one frame step per call (needed for hungarian decode)")
-    ap.add_argument("--data-parallel", action="store_true")
+    ap.add_argument("--data-parallel", action="store_true",
+                    help="one sequence per rank, a rank per visible card")
     ap.add_argument("--split", default=None)
     ap.add_argument("--proposal-dir", default=None)
     ap.add_argument("--ckpt", default=None,
@@ -77,10 +83,9 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.data_parallel:
-        raise _not_ported("--data-parallel (the multi-device mesh)")
-
     import numpy as np
+    import torch
+    import torch.distributed as dist
 
     from dmm_net_tpu_torch.config import preset
     from dmm_net_tpu_torch.data.pipeline import RingStager
@@ -88,6 +93,7 @@ def main(argv=None):
     from dmm_net_tpu_torch.infer.batching import batch_sequence_streams
     from dmm_net_tpu_torch.infer.engine import InferenceEngine
     from dmm_net_tpu_torch.models.dmm import DMMNet
+    from dmm_net_tpu_torch.parallel import launch, make_mesh, visible_ranks
     from dmm_net_tpu_torch.utils.checkpoint import load_checkpoint
     from dmm_net_tpu_torch.utils.cli import parse_overrides
 
@@ -110,6 +116,19 @@ def main(argv=None):
         log.info("hungarian decode requires per-frame dispatch; forcing "
                  "--per-frame")
         args.per_frame = True
+    if args.per_frame and args.data_parallel:
+        raise SystemExit("--per-frame and --data-parallel are exclusive "
+                         "(the sharded path is the chunked one)")
+    mesh, group_size = None, 1
+    if args.data_parallel:
+        if not dist.is_initialized():
+            return launch(main, visible_ranks(args.device),
+                          torch.device(args.device).type, argv)[0]
+        mesh = make_mesh(device_type=torch.device(args.device).type)
+        group_size = mesh.world
+        log.info("data-parallel inference over %d rank(s), rank %d",
+                 group_size, mesh.rank)
+    lead = mesh is None or mesh.rank == 0
 
     kw = dict(image_size=cfg.model.image_size, proposal_dir=args.proposal_dir,
               max_objects=cfg.matching.max_templates,
@@ -126,14 +145,15 @@ def main(argv=None):
         seqs = args.sequences or ds.videos
         if not seqs:
             raise SystemExit(f"no videos found under {args.ytvos_root}")
+    device = args.device if mesh is None else mesh.device
     model = None
     if "state_dict" in loaded:
-        model = DMMNet(cfg, device=args.device)
+        model = DMMNet(cfg, device=device)
         model.load_state_dict(loaded["state_dict"])
     engine = InferenceEngine(cfg, model=model,
                              variables=loaded.get("variables"),
                              update_templates=not args.no_template_update,
-                             device=args.device)
+                             mesh=mesh, device=device)
 
     def eval_davis(name, labels, sd0):
         if args.score_at_model_res:
@@ -179,9 +199,12 @@ def main(argv=None):
     results = {}
     total_frames = 0
     infer_seconds = 0.0
-    for name in seqs:
-        sd0 = ds.sequence_stream(name)
-        sd = batch_sequence_streams([sd0])
+    for g in range(0, len(seqs), group_size):
+        names = list(seqs[g:g + group_size])
+        names += names[-1:] * (group_size - len(names))  # pad the last group
+        # one stream per lane: a duplicate must not share its generator
+        sds = [ds.sequence_stream(name) for name in names]
+        sd = batch_sequence_streams(sds)
         lf = sd.get("live_from")
         if args.per_frame and lf is not None and np.any(np.asarray(lf) > 0):
             # run_sequence has no live_from gating: a mid-video object would
@@ -198,16 +221,23 @@ def main(argv=None):
                 sd["first_frame"], chunk=args.chunk, live_from=lf,
                 tmpl_frames=sd.get("tmpl_frames"))
         infer_seconds += time.time() - t0
-        labels = res["labels"][:sd["lengths"][0], 0]
-        total_frames += labels.shape[0]
-        if args.dataset == "ytvos":
-            write_ytvos(name, labels, sd0)
-            continue
-        for t in range(labels.shape[0]):
-            engine.write_png(labels[t], os.path.join(args.out, name,
-                                                     f"{t:05d}.png"))
-        if not args.no_eval:
-            eval_davis(name, labels, sd0)
+        done = set()
+        for b, name in enumerate(names):
+            if name in done or not lead:     # a padding duplicate, or rank > 0
+                continue
+            done.add(name)
+            labels = res["labels"][:sd["lengths"][b], b]
+            total_frames += labels.shape[0]
+            if args.dataset == "ytvos":
+                write_ytvos(name, labels, sds[b])
+                continue
+            for t in range(labels.shape[0]):
+                engine.write_png(labels[t], os.path.join(args.out, name,
+                                                         f"{t:05d}.png"))
+            if not args.no_eval:
+                eval_davis(name, labels, sds[b])
+    if not lead:
+        return None
 
     def mean(key):
         return (float(np.mean([r[key] for r in results.values()]))
@@ -221,7 +251,7 @@ def main(argv=None):
         "frames": total_frames,
         "dispatch": "per_frame" if args.per_frame else "chunked_scan",
         "chunk": None if args.per_frame else args.chunk,
-        "data_parallel": None,
+        "data_parallel": group_size if args.data_parallel else None,
     }
     os.makedirs(args.out, exist_ok=True)
     with open(os.path.join(args.out, "results.json"), "w") as f:

@@ -66,6 +66,24 @@ def test_cuda_matcher_matches_plain(cuda_kernels, shape, eps_init):
     assert (got.transpose(1, 2)[~cm] == 0).all()
 
 
+@pytest.mark.cuda
+def test_cuda_matcher_keeps_a_nan_as_its_plain_version(cuda_kernels):
+    """A NaN in B1's embedding reaches X where it reaches the plain
+    version's (torch's clamps keep a NaN; CUDA's fminf / fmaxf would drop
+    it and give finite garbage), and the other batch elements are
+    untouched; so utils/debug.checked catches it."""
+    from dmm_net_tpu_torch.utils.debug import checked
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    arrs = _matcher_problem(gen, 4, 16, 128, 448, 256, 4096)
+    arrs[0][0, 0, 0] = float("nan")
+    got, want = fused_pool_cost_match(*arrs), pool_cost_match_plain(*arrs)
+    assert torch.equal(torch.isnan(got), torch.isnan(want))
+    assert torch.isnan(got[0]).any() and not torch.isnan(got[1:]).any()
+    torch.testing.assert_close(got[1:], want[1:], atol=2e-4, rtol=0)
+    with pytest.raises(FloatingPointError):
+        checked(fused_pool_cost_match)(*arrs)
+
+
 def _resolve_problem(gen, B, M, h, w, dead=False):
     """Logits with ~70% valid slots whose invalid slots carry the largest
     logits; ``dead``: the last batch element has no valid slot."""
@@ -502,3 +520,118 @@ def test_cuda_dcn_detector_trains_at_full_width(cuda_kernels):
         assert all(torch.isfinite(v) for v in m.values())
     assert _build.launch_counts()["roi_align"] == 8
     assert _build.backward_calls()["roi_align"] == 8
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_train_step_two_ranks_share_the_card(cuda_kernels):
+    """Two ranks on one card (gloo), B1 and B1' on the card, train-mode BN
+    with global statistics through remat (chip_smoke.py 10b's small
+    configuration): one process's loss, every gradient leaf (to 1e-4 of its
+    largest entry) and BN running statistics (1e-5) on the whole batch,
+    with valid counts 1 and 2 in the halves."""
+    import numpy as np
+
+    import chip_smoke as cs
+    import torch_port_ranks as ranks
+    from dmm_net_tpu_torch.parallel import launch
+    from dmm_net_tpu_torch.train.loop import (batch_to, create_train_state,
+                                              make_train_step)
+
+    cfg = cs.mesh_p5_config(small=True)
+    batch = cs.mesh_p5_batch(small=True)
+    r0, r1 = launch(ranks.dmm_steps, 2, "cuda", cfg.to_dict(), None, batch, 1,
+                    "cuda")
+    state = create_train_state(cfg, seed=0, device="cuda")
+    grads = {}
+    update = state.optimizer.update
+    state.optimizer.update = lambda gs: (grads.update(zip(
+        [n for n, _ in state.model.named_parameters()], gs)), update(gs))
+    m = make_train_step(cfg)(state, batch_to(batch, "cuda"))
+    assert r0["loss"] == r1["loss"]
+    assert abs(r0["loss"][0] - float(m["loss"])) <= 1e-4 * abs(float(m["loss"]))
+    for n, g in grads.items():
+        g = g.cpu().numpy()
+        assert np.abs(r0["grads"][n] - g).max() <= 1e-4 * np.abs(g).max() + 1e-12, n
+    for k, v in state.model.state_dict().items():
+        if k.endswith(("running_mean", "running_var")):
+            np.testing.assert_allclose(r0["bn_stats_1"][k], v.cpu().numpy(),
+                                       rtol=1e-5, atol=1e-5, err_msg=k)
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_engine_two_ranks_share_the_card(cuda_kernels):
+    """p3's path (B1, B2) at R-18 64x96 on two ranks sharing the card: the
+    whole batch's labels on both ranks, equal to one process's except on
+    ties (mismatch < 1e-3), and the refusal of an odd batch."""
+    import numpy as np
+
+    import torch_port_ranks as ranks
+    from dmm_net_tpu_torch.config import preset
+    from dmm_net_tpu_torch.infer.engine import InferenceEngine
+    from dmm_net_tpu_torch.parallel import launch
+
+    cfg = preset("p3_multi_object").override(**{
+        "model.backbone": "resnet18", "model.image_size": (64, 96),
+        "matching.max_templates": 4, "matching.max_proposals": 8})
+    rng = np.random.RandomState(0)
+    B, T, H, W = 4, 4, 64, 96
+    frames = rng.randint(0, 256, (T, B, H, W, 3)).astype(np.uint8)
+    tmpl = (rng.rand(B, 4, H, W) > 0.7).astype(np.float32)
+    valid = np.zeros((B, 4), bool)
+    valid[:2, :1] = True
+    valid[2:, :3] = True
+    items = [{"frame": frames[t],
+              "prop_boxes": np.tile(np.array([[4, 4, 60, 40]], np.float32),
+                                    (B, 8, 1)) + rng.rand(B, 8, 4).astype(np.float32) * 8,
+              "prop_masks28": (rng.rand(B, 8, 28, 28) > 0.4).astype(np.float32),
+              "prop_valid": rng.rand(B, 8) > 0.2} for t in range(T)]
+    r0, r1 = launch(ranks.engine_run, 2, "cuda", cfg.to_dict(), None, items,
+                    tmpl, valid, frames[0], 2, "cuda")
+    want = InferenceEngine(cfg, seed=0).run_stream_chunked(
+        iter(items), tmpl, valid, frames[0], chunk=2)
+    np.testing.assert_array_equal(r0["stream"]["labels"], r1["stream"]["labels"])
+    assert (r0["stream"]["labels"] != want["labels"]).mean() < 1e-3
+    np.testing.assert_allclose(r0["stream"]["assignments"], want["assignments"],
+                               atol=5e-2)
+    assert r0["refusal"] == "sequence batch 3 not divisible by mesh data axis 2"
+
+
+@pytest.mark.cuda
+def test_cuda_mesh_nccl_across_cards(cuda_kernels):
+    """One rank per card over NCCL (two or four cards): the p5_train step at
+    full width (float32 backbone, B=4 clips, clip 0 with one valid object)
+    against one process on the whole batch on card 0,
+    loss and grad norm to 1e-4 relative and every gradient leaf to 1e-4 of
+    its largest entry; and the p3 engine's gathered labels against one
+    process's (mismatch < 1e-3)."""
+    import numpy as np
+
+    import chip_smoke as cs
+    import torch_port_ranks as ranks
+    from dmm_net_tpu_torch.config import preset
+    from dmm_net_tpu_torch.infer.engine import InferenceEngine
+    from dmm_net_tpu_torch.parallel import launch
+
+    world = torch.cuda.device_count()
+    if world not in (2, 4):
+        pytest.skip("needs two or four CUDA devices (the batches hold 4)")
+    cfg, batch = cs.mesh_p5_config(f32=True), cs.mesh_p5_batch()
+    outs = launch(ranks.dmm_steps, world, "cuda", cfg.to_dict(), None, batch,
+                  1, "cuda")
+    assert all(o["loss"] == outs[0]["loss"] for o in outs)
+    want = cs.mesh_train_run(cfg, batch, 1)
+    assert abs(outs[0]["loss"][0] - want["loss"][0]) <= 1e-4 * abs(want["loss"][0])
+    assert abs(outs[0]["grad_norm"][0] - want["grad_norm"][0]) <= \
+        1e-4 * abs(want["grad_norm"][0])
+    for n, g in zip(want["names"], want["grads"]):
+        g = g.cpu().numpy()
+        assert np.abs(outs[0]["grads"][n] - g).max() <= 1e-4 * np.abs(g).max() + 1e-12, n
+
+    p3, (frames, tmpl, valid, items) = cs.mesh_engine_inputs()
+    items = items[:8]
+    r = launch(ranks.engine_run, world, "cuda", p3.to_dict(), None, items,
+               tmpl, valid, frames[0], 8, "cuda")
+    single = InferenceEngine(p3, seed=0).run_stream_chunked(
+        iter(items), tmpl, valid, frames[0], chunk=8)
+    for o in r:
+        assert (o["stream"]["labels"] != single["labels"]).mean() < 1e-3

@@ -92,9 +92,14 @@ def test_train_proposal_cli_init_resumes_from_the_saved_file(trained):
     assert np.isfinite(more["history"][0]["total"])
 
 
-def test_train_proposal_cli_refuses_data_parallel():
-    with pytest.raises(SystemExit, match="item 9"):
-        train_proposal_torch.main([*_SMALL, "--data-parallel"])
+def test_train_proposal_cli_refuses_data_parallel(monkeypatch):
+    """--data-parallel refuses a batch that does not divide over the ranks
+    (train_proposal.py's check), before it joins the group: here
+    torchrun's environment of 2 ranks and --batch 1."""
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setenv("RANK", "0")
+    with pytest.raises(SystemExit, match="must divide over 2"):
+        train_proposal_torch.main([*_SMALL, "--data-parallel", "--batch", "1"])
 
 
 def test_saved_detector_serves_extract_proposals(trained, tmp_path):

@@ -257,7 +257,7 @@ def test_batch_loss_is_the_mean_of_per_image_losses(small):
 
 def test_train_step_updates_like_adamw_and_refuses_a_mesh(small):
     port = MaskRCNN(**_SMALL, device="cpu", seed=2).trainable_()
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         make_proposal_train_step(port, make_proposal_optimizer(port, 1e-4),
                                  mesh=object())
     with pytest.raises(ValueError, match="trainable"):

@@ -151,18 +151,19 @@ def test_engine_defaults_to_cuda():
 
 
 def test_engine_rejects_unported_paths(tmp_path):
-    """What stays unported: the mesh (the engine's and the CLI's
-    --data-parallel) and orbax checkpoint directories; each refuses and
-    names ROADMAP.md."""
+    """What the engine and the CLI refuse: a mesh that is not a
+    parallel.mesh.Mesh, --per-frame with --data-parallel (as infer.py
+    does), and orbax checkpoint directories, which stay unported and name
+    ROADMAP.md."""
     from dmm_net_tpu_torch.utils.checkpoint import load_msgpack_ckpt
     cfg = config_from_dict(_slice_cfg("float32").to_dict())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         InferenceEngine(cfg, mesh=object(), device="cpu")
     r = subprocess.run([sys.executable, str(_ROOT / "infer_torch.py"),
-                        "--data-parallel", "--device", "cpu"],
+                        "--data-parallel", "--per-frame", "--device", "cpu"],
                        cwd=str(tmp_path), capture_output=True, text=True,
                        timeout=300)
-    assert r.returncode != 0 and "ROADMAP" in r.stderr, r.stderr[-2000:]
+    assert r.returncode != 0 and "exclusive" in r.stderr, r.stderr[-2000:]
     with pytest.raises(ValueError, match="ROADMAP"):
         load_msgpack_ckpt(str(tmp_path))
 
@@ -172,10 +173,16 @@ def test_port_imports_no_jax():
             "for m in pkgutil.walk_packages(dmm_net_tpu_torch.__path__, "
             "'dmm_net_tpu_torch.'):\n"
             "    importlib.import_module(m.name)\n"
-            "import infer_torch, train_torch\n"
+            "import infer_torch, train_torch, train_proposal_torch\n"
             "import importlib.util as u\n"
             "for f in ('tools/extract_proposals_torch.py',\n"
-            "          'examples/train_and_eval_synthetic_torch.py'):\n"
+            "          'tools/import_torch_weights_torch.py',\n"
+            "          'tools/import_maskrcnn_weights_torch.py',\n"
+            "          'examples/train_and_eval_synthetic_torch.py',\n"
+            "          'examples/full_system_synthetic_torch.py',\n"
+            "          'examples/train_synthetic_torch.py',\n"
+            "          'examples/infer_demo_torch.py',\n"
+            "          'examples/matcher_only_torch.py'):\n"
             "    s = u.spec_from_file_location('x', f)\n"
             "    s.loader.exec_module(u.module_from_spec(s))\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -195,10 +202,11 @@ def test_port_sources_never_name_jax():
                          re.MULTILINE)
     files = sorted(_PKG.rglob("*.py")) + [
         _ROOT / "chip_smoke.py", _ROOT / "infer_torch.py",
-        _ROOT / "train_torch.py",
-        _ROOT / "examples" / "train_and_eval_synthetic_torch.py",
-        _ROOT / "tools" / "extract_proposals_torch.py"]
-    assert len(files) >= 28
+        _ROOT / "train_torch.py", _ROOT / "train_proposal_torch.py",
+        *sorted((_ROOT / "examples").glob("*_torch.py")),
+        *sorted((_ROOT / "tools").glob("*_torch.py")),
+        _ROOT / "tests" / "torch_port_ranks.py"]
+    assert len(files) >= 40
     for f in files:
         hit = pattern.search(f.read_text())
         assert hit is None, f"{f.relative_to(_ROOT)}: {hit.group(0)!r}"

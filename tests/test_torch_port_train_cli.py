@@ -1,6 +1,7 @@
 """train_torch.py on the CPU, in-process: synthetic steps, a DAVIS-layout
 train tree, resume, serving its checkpoint through infer_torch.py, and the
-refusals (no CUDA without --device cpu; --data-parallel above 1)."""
+refusals (no CUDA without --device cpu; a batch that does not divide over
+--data-parallel's ranks)."""
 
 import json
 
@@ -88,8 +89,9 @@ def test_davis_tree_trains_and_serves(tmp_path, pallas):
 
 
 def test_refusals(tmp_path):
-    with pytest.raises(SystemExit, match="ROADMAP.md"):
-        train_torch.main(["--data-parallel", "2", "--logdir", str(tmp_path)])
+    with pytest.raises(SystemExit, match="must divide over 3"):
+        train_torch.main(["--data-parallel", "3", "--device", "cpu",
+                          "--logdir", str(tmp_path)])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             train_torch.main(["--steps", "1", "--logdir", str(tmp_path),
@@ -106,10 +108,12 @@ def _example():
     return example
 
 
-def test_example_trains_scores_and_saves(tmp_path):
+def test_example_trains_scores_and_saves(tmp_path, capsys):
     """examples/train_and_eval_synthetic_torch.py end to end on the CPU, cut
     to 3 steps: J&F through the engine, the saved checkpoint promoted past
-    its gate (0 here), the ablation's engines, --mrcnn refused."""
+    its gate (0 here), the ablation's engines; and with --mrcnn on a seeded
+    detector (train_proposal_torch.py --steps 0 --save), its detections in
+    place of the planted proposals."""
     example = _example()
     save = tmp_path / "dmm.pt"
     r = example.main(["--device", "cpu", "--steps", "3", "--size", "32",
@@ -118,8 +122,19 @@ def test_example_trains_scores_and_saves(tmp_path):
                       str(save), "--ablate"])
     assert r["steps"] == 3 and 0.0 <= r["jf"]["J&F"] <= 1.0
     assert save.exists() and not (tmp_path / "dmm.pt.unverified").exists()
-    with pytest.raises(SystemExit, match="ROADMAP.md"):
-        example.main(["--device", "cpu", "--mrcnn", "x.msgpack"])
+    import train_proposal_torch
+    det = tmp_path / "det.msgpack"
+    train_proposal_torch.main(["--device", "cpu", "--steps", "0",
+                               "--image-size", "32", "32", "--num-classes",
+                               "4", "--save", str(det), "--logdir",
+                               str(tmp_path / "det_log")])
+    capsys.readouterr()
+    r = example.main(["--device", "cpu", "--steps", "3", "--size", "32",
+                      "--eval-frames", "3", "--distinct-batches", "2",
+                      "--min-jf", "0", "--mrcnn", str(det)])
+    assert r["steps"] == 3 and np.isfinite(r["final_loss"])
+    assert ("replaced planted proposals with detector output for 2 batches"
+            in capsys.readouterr().out)
 
 
 def test_example_starts_from_jax_variables(tmp_path):

@@ -5,7 +5,8 @@ of train_proposal.py, with its flags, samplers, detector settings
 
 Usage:
   python train_proposal_torch.py [--steps 100] [--image-size 128 128] \
-      [--backbone resnet18] [--logdir runs/proposal] [--device cpu]
+      [--backbone resnet18] [--logdir runs/proposal] [--device cpu] \
+      [--batch 2 --data-parallel]
 
 Trains on synthetic detection frames (``--data detection``: COCO-like,
 class = shape family) or frames of the synthetic video generator
@@ -19,8 +20,14 @@ and tools/extract_proposals_torch.py --params read; --init reads one.
 Without --init the weights are the port's random init from --seed (with
 --steps 0 --save that file is the initial state, and train_proposal.py
 --init trains the JAX package from the same one). Runs on CUDA unless
---device says otherwise. Not ported: --data-parallel (ROADMAP.md §A,
-item 9).
+--device says otherwise.
+
+--data-parallel trains on a mesh of one rank per visible card (on the
+CPU, of the ranks of an initialised group; --batch must divide over
+them): each rank takes its rows of every batch and the gradients are summed
+over the ranks (train/proposal_loop.py). Under torchrun's environment the
+script joins torchrun's group; otherwise it starts its ranks itself. Rank
+0 alone logs, scores and writes --save.
 """
 
 import argparse
@@ -96,7 +103,7 @@ def main(argv=None):
     ap.add_argument("--batch", type=int, default=1,
                     help="images per step (the mean of per-image losses)")
     ap.add_argument("--data-parallel", action="store_true",
-                    help="not ported (ROADMAP.md §A, item 9)")
+                    help="split each batch over one rank per visible card")
     ap.add_argument("--image-size", type=int, nargs=2, default=(128, 128))
     ap.add_argument("--backbone", default="resnet18")
     ap.add_argument("--num-classes", type=int, default=3)
@@ -120,10 +127,24 @@ def main(argv=None):
                     help="seed of the random initial weights (without --init)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
+
+    import torch
+    import torch.distributed as dist
+
+    from dmm_net_tpu_torch.parallel import (launch, make_mesh, replicate_,
+                                            shard_batch, visible_ranks)
+
+    mesh = None
     if args.data_parallel:
-        raise SystemExit("--data-parallel (detector training over several "
-                         "devices) is not ported to the PyTorch package yet "
-                         "(see ROADMAP.md §A, item 9)")
+        world = visible_ranks(args.device)
+        if args.batch % world:
+            raise SystemExit(f"--batch {args.batch} must divide over {world} "
+                             "data-parallel ranks")
+        device_type = torch.device(args.device).type
+        if not dist.is_initialized():
+            return launch(_rank_main, world, device_type, argv)[0]
+        mesh = make_mesh(data=world, device_type=device_type)
+    lead = mesh is None or mesh.rank == 0
 
     from dmm_net_tpu_torch.models.proposal.maskrcnn import MaskRCNN
     from dmm_net_tpu_torch.train.proposal_loop import (make_proposal_optimizer,
@@ -144,21 +165,28 @@ def main(argv=None):
 
     model = MaskRCNN(image_size=(H, W), backbone_name=args.backbone,
                      num_classes=args.num_classes, pre_nms_top_n=64,
-                     post_nms_top_n=32, max_detections=16, device=args.device,
+                     post_nms_top_n=32, max_detections=16,
+                     device=args.device if mesh is None else mesh.device,
                      seed=args.seed)
     if args.init:
         with open(args.init, "rb") as f:
             load_flax_variables(model, msgpack_restore(f.read()))
         log.info("initialized from %s", args.init)
+    if mesh is not None:
+        replicate_(model, mesh)
+        log.info("data-parallel mesh: %s, rank %d", mesh.shape, mesh.rank)
     model.trainable_()
     optimizer = make_proposal_optimizer(model, args.lr)
-    step = make_proposal_train_step(model, optimizer)
-    writer = MetricsWriter(args.logdir)
+    step = make_proposal_train_step(model, optimizer, mesh=mesh)
+    writer = MetricsWriter(args.logdir) if lead else None
     B = args.batch
 
+    def rows(batch):
+        return batch if mesh is None else shard_batch(batch, mesh)
+
     n_batches = max(args.distinct_frames // B, 1)
-    batches = [proposal_batch_to(stack_detection_frames(
-        [sample(bi * B + j) for j in range(B)]), model.device)
+    batches = [proposal_batch_to(rows(stack_detection_frames(
+        [sample(bi * B + j) for j in range(B)])), model.device)
         for bi in range(n_batches)]
     history, step_times = [], []
     t0 = time.perf_counter()
@@ -170,7 +198,7 @@ def main(argv=None):
         history.append({"step": i + 1, **m})
         if i == 0:
             log.info("first step: %.1fs", step_times[0] - t0)
-        if (i + 1) % 10 == 0 or i == 0:
+        if lead and ((i + 1) % 10 == 0 or i == 0):
             logged = {k: v for k, v in m.items() if k != "grad_norm"}
             writer.write(i + 1, logged)
             log.info("step %d: %s", i + 1,
@@ -178,22 +206,33 @@ def main(argv=None):
     seconds = time.perf_counter() - t0
     result = {"history": history, "step_times": step_times, "seconds": seconds,
               "model": model}
-    if args.eval_images:
+    if lead and args.eval_images:
         box_ap, mask_ap = evaluate(model, sample, args.eval_images)
         log.info("held-out box AP: %s", {k: round(v, 4) for k, v in box_ap.items()})
         log.info("held-out mask AP: %s", {k: round(v, 4) for k, v in mask_ap.items()})
         writer.write(args.steps, {f"box_{k}": v for k, v in box_ap.items()})
         writer.write(args.steps, {f"mask_{k}": v for k, v in mask_ap.items()})
         result.update(box_ap=box_ap, mask_ap=mask_ap)
-    writer.close()
+    if writer is not None:
+        writer.close()
 
-    if args.save:
+    if lead and args.save:
         os.makedirs(os.path.dirname(os.path.abspath(args.save)), exist_ok=True)
         with open(args.save, "wb") as f:
             f.write(msgpack_serialize(to_flax_variables(model)))
         log.info("saved variables to %s", args.save)
+    if mesh is not None:
+        mesh.barrier()
     log.info("done")
     return result
+
+
+def _rank_main(argv):
+    """main on one rank started by ``launch``: its result without the
+    model."""
+    out = main(argv)
+    out.pop("model")
+    return out
 
 
 if __name__ == "__main__":

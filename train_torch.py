@@ -5,7 +5,8 @@ counterpart of train.py.
 Usage:
   python train_torch.py --preset p5_train \
       --set matching.use_pallas=true data.dataset=davis data.root=/data/DAVIS \
-      [--steps 1000] [--resume] [--logdir runs/x] [--device cpu]
+      [--steps 1000] [--resume] [--logdir runs/x] [--device cpu] \
+      [--data-parallel N]
 
 Builds the clip stream (synthetic, DAVIS or YouTube-VOS), augments each
 batch and stages it on the device in data/pipeline.Prefetcher's loader
@@ -15,7 +16,16 @@ with jsonl metrics (<logdir>/metrics.jsonl) and checkpoints every
 ``train.checkpoint_every`` steps and at the end. A resumed run offsets the
 data seed by its step, as train.py does, so it sees the batches an
 uninterrupted run would have seen. Runs on CUDA unless --device says
-otherwise. Not ported: --data-parallel above 1 (ROADMAP.md §A, item 9).
+otherwise.
+
+--data-parallel N trains on a mesh of N ranks (0: one per visible card;
+a mesh only when N > 1; data.batch_size must divide over N). Every rank
+builds the same global batches and stages its own rows, and the gradients
+are summed over the ranks (train/loop.py). Under torchrun's environment
+the script joins torchrun's group; otherwise it starts N processes itself
+(nccl when each rank has a card of its own, gloo on the CPU or when ranks
+share a card). Rank 0 alone writes the metrics and the checkpoints; every
+rank restores on --resume.
 """
 
 import argparse
@@ -70,27 +80,39 @@ def main(argv=None):
     ap.add_argument("--resume", action="store_true")
     ap.add_argument("--logdir", default="runs/default")
     ap.add_argument("--data-parallel", type=int, default=0,
-                    help="devices on the data axis (only 0 or 1: one device)")
+                    help="ranks on the data axis (0 = one per visible card; "
+                    "a mesh only above 1)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.data_parallel > 1:
-        raise SystemExit("--data-parallel above 1 (data-parallel training "
-                         "over several devices) is not ported to the PyTorch "
-                         "package yet (see ROADMAP.md §A, item 9)")
+    import torch
+    import torch.distributed as dist
 
     from dmm_net_tpu_torch.config import preset
     from dmm_net_tpu_torch.data.augment import augment_batch
     from dmm_net_tpu_torch.data.pipeline import Prefetcher
+    from dmm_net_tpu_torch.parallel import launch, make_mesh, visible_ranks
     from dmm_net_tpu_torch.train.loop import create_train_state, train_loop
     from dmm_net_tpu_torch.utils.checkpoint import Checkpointer
     from dmm_net_tpu_torch.utils.cli import parse_overrides
     from dmm_net_tpu_torch.utils.logging import MetricsWriter
 
+    cfg = preset(args.preset).override(**parse_overrides(getattr(args, "set")))
+    device_type = torch.device(args.device).type
+    n_data = args.data_parallel or visible_ranks(args.device)
+    mesh = None
+    if n_data > 1:
+        if cfg.data.batch_size % n_data:
+            raise SystemExit(f"data.batch_size {cfg.data.batch_size} must "
+                             f"divide over {n_data} data-parallel ranks")
+        if not dist.is_initialized():
+            return launch(_rank_main, n_data, device_type, argv)[0]
+        mesh = make_mesh(data=n_data, device_type=device_type)
+    lead = mesh is None or mesh.rank == 0
+
     logging.basicConfig(format="%(asctime)s train_torch %(levelname)s: "
                         "%(message)s", level=logging.INFO)
     log = logging.getLogger("train_torch")
-    cfg = preset(args.preset).override(**parse_overrides(getattr(args, "set")))
     steps = args.steps or cfg.train.total_steps
 
     # the resume step fixes the stream's position before the stream is built
@@ -103,12 +125,14 @@ def main(argv=None):
                          f"--steps {steps}")
     stream = _clip_stream(cfg, steps, start_step)
 
-    state = create_train_state(cfg, seed=cfg.train.seed, device=args.device)
+    state = create_train_state(cfg, seed=cfg.train.seed, device=args.device,
+                               mesh=mesh)
     if start_step:
         ckpt.restore(state)
         log.info("resumed at step %d", state.step)
-    log.info("config %s, steps %d..%d on %s", cfg.name, start_step, steps,
-             state.model.device)
+    log.info("config %s, steps %d..%d on %s%s", cfg.name, start_step, steps,
+             state.model.device, "" if mesh is None else
+             f", rank {mesh.rank} of {mesh.world}")
 
     if cfg.data.augment:
         stream = ({"__seed": i, **b}
@@ -122,7 +146,7 @@ def main(argv=None):
             return b
 
     staged = Prefetcher(stream, load, depth=cfg.data.prefetch_depth,
-                        device=state.model.device)
+                        device=state.model.device, mesh=mesh)
     history = []
 
     def on_step(st, metrics):
@@ -130,17 +154,28 @@ def main(argv=None):
         m["time"] = time.perf_counter()
         history.append(m)
 
-    writer = MetricsWriter(args.logdir)
+    writer = MetricsWriter(args.logdir) if lead else None
     t0 = time.perf_counter()
     state = train_loop(cfg, state, staged, writer=writer, checkpointer=ckpt,
-                       on_step=on_step)
+                       on_step=on_step, mesh=mesh)
     seconds = time.perf_counter() - t0
-    path = ckpt.save(state)
-    writer.close()
+    path = ckpt.save(state) if lead else ckpt.path(state.step)
+    if mesh is not None:
+        mesh.barrier()
+    if writer is not None:
+        writer.close()
     log.info("done at step %d (%.1f s); checkpoint %s", state.step, seconds,
              path)
     return {"step": state.step, "history": history, "seconds": seconds,
             "checkpoint": path, "state": state}
+
+
+def _rank_main(argv):
+    """main on one rank started by ``launch``: its result without the
+    TrainState, which does not pickle."""
+    out = main(argv)
+    out.pop("state")
+    return out
 
 
 if __name__ == "__main__":
