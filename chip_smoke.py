@@ -123,8 +123,32 @@ Phases, each fatal on failure:
      the card, and a seeded torchvision-layout Mask R-CNN state dict
      through tools/import_maskrcnn_weights_torch.py into the full-width
      detector's forward (B4). Two ranks on one card make no speed number.
+  11. the native host path, the day-one drill, the artifact chain and the
+     A/B tools: (11a, run on phase 6b's tree) a g++ -E probe of libjpeg's
+     and libpng's headers; where they are present the image loader
+     (csrc/host/imgloader.cpp) must build and be used, its frames within
+     +-1 of PIL, labels equal at their own size, batches equal to
+     one-by-one decodes; where not, the readers decode with PIL and say
+     so; the C++ RLE codec against numpy on the cache CLI's masks; the p4
+     reader's host ms per step with each decoder and codec that builds;
+     (11b) infer_torch.py with the git-tracked checkpoint on the day-one
+     tree (JPEG at the native 854x480, seed 7003, T=4, --chunk 4), as
+     saved and on the kernels: chunked dispatch, J&F > 0.85 and within 0.01
+     of the JAX package's (JAX_DAYONE_FALLBACK_JF); (11c)
+     tools/regen_artifacts_torch.sh up to its drill at full width (R-18
+     detector and R-50 DMM at 256x448, the full system), cut to 100
+     detector and 10 DMM steps with the J&F gates off (CHAIN_KNOBS), in a
+     copy of the files it reads: every stage exits 0 and writes its file,
+     with each stage's ms per step, peak memory and B1/B1'/B4/B4' counts;
+     then the drill's commands (flagship_drill) on those files, ungated;
+     (11d)
+     tools/ab_logits_res_torch.py on the checkpoint, tools/ab_480p_torch.py
+     on 11c's files and the same 480x864 run on the kernels (B1, B2 and B4
+     at 480x864 against their plain versions), and
+     tools/ab_decoder_arch_torch.py with 2 variants.
 
-PIL is required (phases 5d, 6, 7 and 9 read and write image trees). Prints
+PIL is required (phases 5d, 6, 7, 9 and 11 read and write image trees;
+phase 6c reads with PIL, as the JAX package's reference was computed). Prints
 one JSON line {"kernels": [...]} with each kernel's launches (on the p3
 stream and the detector; ``launches_by_path`` for every path that runs it),
 error, time, plain-version time and bound (B1's entry carries B1' and B4's
@@ -136,6 +160,7 @@ Imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -175,6 +200,13 @@ YTVOS_VIDEOS = dict(seeds=(7301, 7302, 7303, 7304),
 YTVOS_CHUNK = 5
 JAX_YTVOS_G = {"as_saved": 0.9119563155066384, "kernels": 0.9120987107961782}
 
+# Phase 11: the day-one drill's tree (data/synthetic.write_native_davis_tree,
+# JPEG frames at the native 854x480) and the JAX package's J&F of the
+# fallback drill on it (infer.py --chunk 4 with its own native decode, on the
+# CPU); tests/test_torch_port_dayone.py recomputes it.
+DAYONE_TREE = dict(T=4, seeds=(7003,))
+JAX_DAYONE_FALLBACK_JF = {"as_saved": 0.975638071596101, "kernels": 0.9760336387045565}
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -192,6 +224,26 @@ def require_pil(what: str):
     except ImportError:
         fail(f"{what} needs PIL to read and write image trees")
     return Image
+
+
+@contextlib.contextmanager
+def plain_path(module):
+    """``module`` (data/native_loader or ops/rle) on its plain path inside
+    the block, PIL decode or numpy RLE: the pin the tests use, its ``_TRIED``
+    and ``_LIB``."""
+    saved = module._TRIED, module._LIB
+    module._TRIED, module._LIB = True, None
+    try:
+        yield
+    finally:
+        module._TRIED, module._LIB = saved
+
+
+def pil_decode():
+    """The port's readers decode with PIL inside the block, as the JAX
+    package's reference values of phase 6c were computed."""
+    from dmm_net_tpu_torch.data import native_loader
+    return plain_path(native_loader)
 
 
 def smi_line() -> str:
@@ -1251,13 +1303,37 @@ def ckpt_sets(run):
             for k, v in CKPT_RUNS[run].items()]
 
 
-def load_tool(name):
-    """A script under tools/ as a module (its main takes argv)."""
+def load_tool(name, folder="tools"):
+    """A script under tools/ (or ``folder``) as a module (its main takes argv)."""
     import importlib.util
-    spec = importlib.util.spec_from_file_location(name, ROOT / "tools" / f"{name}.py")
+    spec = importlib.util.spec_from_file_location(name, ROOT / folder / f"{name}.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def flagship_drill(dmm, mrcnn, tmp, device="cuda"):
+    """docs/DAYONE_torch.md §1's commands on the drill's tree (the native
+    854x480 tree of seed 7001, T=4): the cache tool with the detector file
+    ``mrcnn``, then infer_torch.py with the DMM file ``dmm`` on that cache,
+    scored at native resolution. Its results.json, and the shape of the
+    first PNG written. tests/test_torch_port_dayone.py gates it."""
+    import infer_torch
+    from dmm_net_tpu_torch.data.synthetic import write_native_davis_tree
+    from PIL import Image
+    root = write_native_davis_tree(str(tmp / "DAVIS"), T=4)
+    cache, out = str(tmp / "proposals"), str(tmp / "results")
+    load_tool("extract_proposals_torch").main([
+        "--dataset", "davis", "--root", root, "--out", cache,
+        "--params", str(mrcnn), "--image-size", "256", "448",
+        "--backbone", "resnet18", "--num-classes", "4", "--max-detections",
+        "8", "--score-thresh", "0.05", "--device", device])
+    summary = infer_torch.main(["--ckpt", str(dmm), "--davis-root", root,
+                                "--proposal-dir", cache, "--out", out,
+                                "--chunk", "4", "--device", device])
+    with Image.open(Path(out) / "seq0" / "00000.png") as im:
+        png_shape = np.asarray(im).shape
+    return summary, png_shape
 
 
 def extract_path(tmp):
@@ -1450,7 +1526,8 @@ def ytvos_ckpt_path(tmp):
     g, launches = {}, {}
     for r in CKPT_RUNS:
         reset_launch_counts()
-        run(r, "cuda")
+        with pil_decode():
+            run(r, "cuda")
         n = 0 if r == "as_saved" else steps
         launches[r] = expect_launches(f"ytvos checkpoint {r}", launch_counts(),
                                       {"fused_pool_cost_match": n,
@@ -1464,7 +1541,8 @@ def ytvos_ckpt_path(tmp):
                  f"of {JAX_YTVOS_G[r]:.4f}")
     vid = sorted(gts)[0]
     for r in CKPT_RUNS:
-        run(f"{r}-cpu", "cpu", ("--sequences", vid))
+        with pil_decode():
+            run(f"{r}-cpu", "cpu", ("--sequences", vid))
         mism = []
         for p in sorted((tmp / r / "Annotations" / vid).glob("*.png")):
             with Image.open(p) as a, Image.open(tmp / f"{r}-cpu" / "Annotations"
@@ -2885,6 +2963,335 @@ def examples_importers_path(tmp):
         fail("10f: the imported detector's forward did not run on B4")
     return res
 
+# ---------------------------------------------------------------------------
+# phase 11: the native host path, the day-one drill, the artifact chain at
+# full width, the three A/B tools
+# ---------------------------------------------------------------------------
+
+# 11c: the training stages of tools/regen_artifacts_torch.sh at full width,
+# their depth cut and the DMM's and the system's J&F gates off through the
+# script's own knobs (a full-depth run of the script holds them). The
+# detector keeps 100 steps: the system's recall gate (0.9, fixed in the
+# script as in the JAX one) needs a detector that has learned, and 100 steps
+# gave recall 1.000 on an H100.
+CHAIN_KNOBS = {"MRCNN_STEPS": "100", "DMM_STEPS": "10", "DMM_MIN_JF": "0",
+               "SYS_MIN_JF": "0"}
+# what the stages read, copied to a temporary root so that they write that
+# root's runs/torch/ and never the checkout's
+CHAIN_FILES = ("dmm_net_tpu_torch", "tools", "examples", "train_proposal_torch.py")
+AB_DECODER_ARGS = ["--variants", "base", "objc3", "--steps", "20", "--size", "128",
+                   "--backbone", "resnet18", "--seqs", "2", "--eval-frames", "4",
+                   "--distinct-batches", "8"]
+
+
+def reader_ms(root, cache, K=8):
+    """Host ms per frame step of the p4 YouTube-VOS reader alone on phase
+    6b's tree and cache (frame decode, the cached masks' RLE decode and
+    resize), over the first K items of its first video; and the items."""
+    import itertools
+    from dmm_net_tpu_torch.config import preset
+    from dmm_net_tpu_torch.data.ytvos import YTVOSDataset
+    cfg = preset("p4_ytvos_stream")
+    ds = YTVOSDataset(str(root), image_size=cfg.model.image_size,
+                      proposal_dir=str(cache), max_objects=cfg.matching.max_templates,
+                      max_proposals=cfg.matching.max_proposals)
+    sd = ds.sequence_stream(ds.videos[0])
+    t0 = time.perf_counter()
+    items = list(itertools.islice(sd["frames"], K))
+    return (time.perf_counter() - t0) / len(items) * 1e3, items
+
+
+def native_path(tmp, yt_root, yt_cache):
+    """Phase 11a: the C++ host path. Where g++ finds libjpeg's and libpng's
+    headers the loader must build and be used: a JPEG tree and phase 6b's
+    PNG tree decoded natively and with PIL (frames within +-1, labels equal
+    at their own size, batches equal to one-by-one decodes); otherwise the
+    readers decode with PIL. The RLE codec (no dependency) must build: the
+    cache CLI's masks decoded, re-encoded and intersected equal to the numpy
+    codec. The p4 reader's host ms per step with each decoder and codec."""
+    from dmm_net_tpu_torch.data import native_loader
+    from dmm_net_tpu_torch.data.synthetic import write_native_davis_tree
+    from dmm_net_tpu_torch.kernels import _build
+    from dmm_net_tpu_torch.ops import rle
+    missing = _build.host_headers_missing("imgloader")
+    res = {"headers_missing": missing}
+    log("11a g++ -E probe of the image loader's headers: "
+        + ("jpeglib.h and png.h present" if not missing else f"missing {missing}"))
+    if missing:
+        if native_loader.available():
+            fail("11a: the image loader built although its headers are missing")
+        log(f"11a the native image loader cannot build here "
+            f"({native_loader.reason().strip().splitlines()[-1]}); the readers "
+            "decode with PIL in 11b-11d, as they say: "
+            f"{native_loader.announce()}")
+    else:
+        if not native_loader.available():
+            fail(f"11a: headers present but the image loader did not build: "
+                 f"{native_loader.reason()}")
+        root = Path(write_native_davis_tree(str(tmp / "DAVIS_11a"), T=3, seeds=(7001,)))
+        frames = [str(p) for p in sorted((root / "JPEGImages").rglob("*.jpg"))]
+        frames += [str(p) for p in sorted((Path(yt_root) / "valid" / "JPEGImages")
+                                          .rglob("*.png"))[:6]]
+        labels = [str(p) for p in sorted((root / "Annotations").rglob("*.png"))]
+        labels += [str(p) for p in sorted((Path(yt_root) / "valid" / "Annotations")
+                                          .rglob("*.png"))]
+        hw = (256, 448)
+        nat = native_loader.load_rgb_batch(frames, hw)
+        one = np.stack([native_loader.load_rgb_batch([f], hw, threads=1)[0]
+                        for f in frames])
+        with pil_decode():
+            pil = native_loader.load_rgb_batch(frames, hw)
+            pil_labels = [native_loader.load_label_native_size(f) for f in labels]
+        diff = int(np.abs(nat.astype(int) - pil).max())
+        lab_eq = all(np.array_equal(native_loader.load_label_native_size(f), w)
+                     for f, w in zip(labels, pil_labels))
+        lab_batch = native_loader.load_label_batch(labels[:3], hw)
+        lab_one = np.stack([native_loader.load_label_batch([f], hw, threads=1)[0]
+                            for f in labels[:3]])
+        log(f"11a native vs PIL on {len(frames)} frames (JPEG 854x480, PNG 640x360) "
+            f"at 256x448: max |d| {diff} (limit 1); {len(labels)} labels at their "
+            f"own size equal {lab_eq}; batches equal to one-by-one decodes "
+            f"{np.array_equal(nat, one) and np.array_equal(lab_batch, lab_one)}")
+        if diff > 1 or not lab_eq or not np.array_equal(nat, one) \
+                or not np.array_equal(lab_batch, lab_one):
+            fail("11a: the native loader disagrees with PIL or with itself")
+        res.update(frames_max_abs_diff=diff, decoder=native_loader.announce())
+    if not rle.available():
+        fail(f"11a: the RLE codec did not build: {rle._REASON}")
+    n, ious = 0, []
+    for f in sorted(Path(yt_cache).rglob("*.json")):
+        props = json.loads(f.read_text())
+        for i, p in enumerate(props):
+            counts = rle._counts(p["rle"])
+            h, w = p["rle"]["size"]
+            m = rle.decode_counts_plain(counts, h, w)
+            if not (np.array_equal(rle.decode_counts(counts, h, w), m)
+                    and np.array_equal(rle.encode_counts(m), counts)
+                    and np.array_equal(rle.encode_counts_plain(m), counts)):
+                fail(f"11a: the native RLE codec disagrees with numpy on {f.name}[{i}]")
+            if i:
+                a, b = rle.iou(props[i - 1]["rle"], p["rle"]), \
+                    rle.iou_plain(props[i - 1]["rle"], p["rle"])
+                if a != b:
+                    fail(f"11a: native RLE IoU {a!r} != numpy {b!r}")
+                ious.append(a)
+            n += 1
+    log(f"11a native RLE on the cache CLI's {n} masks: decode and encode equal to "
+        f"the numpy codec, {len(ious)} IoUs equal bit for bit")
+    res["rle_masks"] = n
+    # the p4 reader's host time per step, each decoder and codec that builds
+    times = {}
+    decoders = ["pil"] + ([] if missing else ["native"])
+    for dec in decoders:
+        for codec in ("numpy", "native"):
+            with (pil_decode() if dec == "pil" else contextlib.nullcontext()), \
+                    (plain_path(rle) if codec == "numpy" else contextlib.nullcontext()):
+                reader_ms(yt_root, yt_cache, K=2)              # warm-up
+                times[f"{dec} decode, {codec} RLE"], _ = reader_ms(yt_root, yt_cache)
+    log("11a p4 YouTube-VOS reader, host ms per frame step (8 steps of phase 6b's "
+        "tree): " + ", ".join(f"{k} {v:.2f}" for k, v in times.items())
+        + ("" if not missing else "; native decode not measured (no headers)"))
+    res["reader_ms"] = times
+    return res
+
+
+def fallback_drill_path(tmp):
+    """Phase 11b: infer_torch.py with the git-tracked checkpoint on the
+    day-one tree (data/synthetic.write_native_davis_tree, seed 7003, T=4,
+    JPEG at 854x480, scored at native resolution, --chunk 4), as saved and
+    on the kernels (B1 and B2 once per frame step): the dispatch chunked,
+    J&F > 0.85 and within 0.01 of the JAX package's (its native decode,
+    JAX_DAYONE_FALLBACK_JF)."""
+    import infer_torch
+    from dmm_net_tpu_torch.data import native_loader
+    from dmm_net_tpu_torch.data.synthetic import write_native_davis_tree
+    from dmm_net_tpu_torch.kernels import launch_counts, reset_launch_counts
+    root = write_native_davis_tree(str(tmp / "DAYONE"), **DAYONE_TREE)
+    T = DAYONE_TREE["T"]
+    jf, launches = {}, {}
+    for run in CKPT_RUNS:
+        reset_launch_counts()
+        s = infer_torch.main(["--ckpt", str(ROOT / CKPT), "--davis-root", root,
+                              "--out", str(tmp / f"dayone_{run}"), "--chunk", "4",
+                              "--device", "cuda", "--set", *ckpt_sets(run)])
+        n = 0 if run == "as_saved" else T
+        launches[run] = expect_launches(f"11b fallback drill {run}", launch_counts(),
+                                        {"fused_pool_cost_match": n,
+                                         "fused_resolve_upsample": n})
+        jf[run] = s["J&F"]
+        d = jf[run] - JAX_DAYONE_FALLBACK_JF[run]
+        log(f"11b fallback drill {run} ({native_loader.decoder()} decode): "
+            f"dispatch {s['dispatch']}, {s['frames']} frames, J&F {jf[run]:.4f} "
+            f"(gate > 0.85), JAX package {JAX_DAYONE_FALLBACK_JF[run]:.4f}, "
+            f"difference {d:+.2e} (limit 0.01); launches {launches[run]}")
+        if s["dispatch"] != "chunked_scan" or s["frames"] != T:
+            fail(f"11b: dispatch {s['dispatch']} over {s['frames']} frames")
+        if not (jf[run] > 0.85 and abs(d) <= 0.01):
+            fail(f"11b fallback drill {run}: J&F {jf[run]:.4f}")
+    return {"decoder": native_loader.decoder(), "jf": jf,
+            "jax_jf": JAX_DAYONE_FALLBACK_JF, "launches": launches}
+
+
+def chain_path(tmp):
+    """Phase 11c: tools/regen_artifacts_torch.sh up to its drill, at full
+    width (the detector R-18 256x448 4 classes, batch 2; the DMM R-50
+    256x448 on its detections; the full system) with CHAIN_KNOBS, in a copy
+    of the files it reads: every stage exits 0 and writes its file. Then
+    the drill's commands (flagship_drill) on those files, without its gate:
+    10 DMM steps make no flagship. Each stage's ms per step, peak memory
+    and B1/B1'/B4/B4' counts."""
+    import os
+    import re
+    import shutil
+    from dmm_net_tpu_torch.kernels import launch_counts, reset_launch_counts
+    work = tmp / "chain"
+    work.mkdir()
+    for name in CHAIN_FILES:
+        src = ROOT / name
+        if src.is_dir():
+            shutil.copytree(src, work / name, ignore=shutil.ignore_patterns("__pycache__"))
+        else:
+            shutil.copy2(src, work / name)
+    script = work / "tools" / "regen_artifacts_torch.sh"
+    text = script.read_text()
+    cut = text.find("\nREQUIRE_ARTIFACTS=1")
+    if cut < 0:
+        fail("11c: no drill stage (REQUIRE_ARTIFACTS=1) in regen_artifacts_torch.sh")
+    t0 = time.perf_counter()
+    r = subprocess.run(["bash", "-c", text[:cut], str(script)],
+                       env={**os.environ, **CHAIN_KNOBS}, capture_output=True,
+                       text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    out = r.stdout + "\n" + r.stderr
+    if r.returncode != 0:
+        fail(f"11c: tools/regen_artifacts_torch.sh exited {r.returncode}:\n"
+             f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    reports = [json.loads(ln[len("cuda: "):]) for ln in r.stdout.splitlines()
+               if ln.startswith("cuda: ")]
+    files = [work / "runs" / "torch" / "proposal_video448" / "mrcnn.msgpack",
+             work / "runs" / "torch" / "dmm448" / "dmm.msgpack"]
+    if len(reports) != 3 or not all(f.exists() for f in files):
+        fail(f"11c: a stage wrote no report or file:\n{r.stdout[-3000:]}")
+
+    def num(pattern):
+        m = re.search(pattern, out)
+        return float(m.group(1)) if m else None
+
+    steps = int(CHAIN_KNOBS["MRCNN_STEPS"])
+    stages = {
+        "detector": {"ms_per_step": num(r"ms per step \(after the first\): ([0-9.]+)"),
+                     **reports[0]},
+        "dmm": {"ms_per_step": num(r"steps/sec: [0-9.]+ \(([0-9.]+) ms per step\)"),
+                "jf": num(r"decoder \(trained \d+ steps\) J&F = ([0-9.]+)"),
+                **reports[1]},
+        "full_system": {"recall": num(r"detector-proposal recall@0.5 : ([0-9.]+)"),
+                        "jf": num(r"J&F with DETECTOR proposals\s*: ([0-9.]+)"),
+                        **reports[2]}}
+    det, dmm, system = (stages[k] for k in ("detector", "dmm", "full_system"))
+    want_b4 = 2 * 2 * steps                               # 2 heads x batch 2
+    if det["launches"]["roi_align"] != want_b4 \
+            or det["backward_calls"]["roi_align"] != want_b4:
+        fail(f"11c detector: B4 {det['launches']['roi_align']} launches, B4' "
+             f"{det['backward_calls']['roi_align']} calls, expected {want_b4}")
+    if dmm["launches"]["roi_align"] != 2 * 64 * 4 * 3:   # 64 batches x 4 clips x 3
+        fail(f"11c DMM: B4 {dmm['launches']['roi_align']} launches on the detected "
+             "training frames, expected 1536")
+    for k, st in (("detector", det), ("dmm", dmm), ("full_system", system)):
+        log(f"11c {k}: " + ", ".join(
+            f"{n} {v:.4g}" for n, v in st.items() if isinstance(v, float))
+            + f"; launches {st['launches']}, backward calls {st['backward_calls']}")
+    log(f"11c regen_artifacts_torch.sh up to its drill, {CHAIN_KNOBS}: every stage "
+        f"exited 0, {[str(f.relative_to(work)) for f in files]} written; "
+        f"{wall:.1f} s wall")
+    (tmp / "drill_11c").mkdir()
+    reset_launch_counts()
+    summary, png_shape = flagship_drill(files[1], files[0], tmp / "drill_11c")
+    drill = {"jf": summary["J&F"], "dispatch": summary["dispatch"],
+             "frames": summary["frames"], "launches": launch_counts()}
+    log(f"11c the drill's commands on these files: dispatch {drill['dispatch']}, "
+        f"{drill['frames']} frames, J&F {drill['jf']:.4f} (no gate: "
+        f"{CHAIN_KNOBS['DMM_STEPS']} DMM steps), first PNG {png_shape}; "
+        f"launches {drill['launches']}")
+    if drill["dispatch"] != "chunked_scan" or drill["frames"] != 4 \
+            or png_shape != (256, 448) or drill["launches"]["roi_align"] != 2 * 4:
+        fail("11c: the drill's commands did not run through (dispatch, frames, "
+             "PNG shape, or B4 not twice per frame)")
+    stages["drill"] = drill
+    return {"wall_s": wall, "knobs": CHAIN_KNOBS, "stages": stages}, work
+
+
+def ab_tools_path(tmp, work):
+    """Phase 11d: the three A/B tools in this process. ab_logits_res_torch on
+    the git-tracked checkpoint (6 videos x 6 frames); ab_480p_torch on 11c's
+    files, then the same 480x864 tree and cache through infer_torch.py on
+    the kernels, with B1, B2 and B4 held against their plain versions at
+    these runs' 480x864 shapes; ab_decoder_arch_torch with 2 variants."""
+    import contextlib
+    import io
+    import infer_torch
+    from dmm_net_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from dmm_net_tpu_torch.models.dmm import mask_hw
+    from dmm_net_tpu_torch.utils.checkpoint import load_msgpack_ckpt
+    res = {}
+
+    def quiet(fn, argv):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            r = fn(argv)
+        return r, buf.getvalue().strip().splitlines()[-1]
+
+    reset_launch_counts()
+    r, line = quiet(load_tool("ab_logits_res_torch").main,
+                    ["--ckpt", str(ROOT / CKPT), "--device", "cuda"])
+    res["ab_logits_res"] = {**r, "launches": launch_counts()}
+    log(f"11d ab_logits_res_torch: {line}")
+    log(f"11d ab_logits_res_torch: J&F full {r['ab_logits_res']['full']['jf']:.4f}, "
+        f"mask {r['ab_logits_res']['mask']['jf']:.4f}, difference (mask - full) "
+        f"{np.mean(r['delta_per_seq']):+.4f}; launches {launch_counts()}")
+    dmm = work / "runs" / "torch" / "dmm448" / "dmm.msgpack"
+    mrcnn = work / "runs" / "torch" / "proposal_video448" / "mrcnn.msgpack"
+    reset_launch_counts()
+    r, line = quiet(load_tool("ab_480p_torch").main,
+                    ["--dmm", str(dmm), "--mrcnn", str(mrcnn), "--workdir",
+                     str(tmp / "ab480"), "--device", "cuda"])
+    n_b4 = launch_counts()["roi_align"]
+    log(f"11d ab_480p_torch on 11c's files: {line}; launches {launch_counts()}")
+    frames = 2 * 4                                       # seeds 7001, 7002 x T=4
+    if n_b4 != 2 * 2 * frames:                            # 2 heads, 2 geometries
+        fail(f"11d ab_480p_torch: B4 {n_b4} launches, expected {4 * frames}")
+    # the 480x864 run again on the kernels
+    cfg0, _ = load_msgpack_ckpt(str(dmm))
+    sets = ["model.image_size=480,864", *ckpt_sets("kernels")]
+    reset_launch_counts()
+    s = infer_torch.main(["--ckpt", str(dmm), "--davis-root", str(tmp / "ab480" / "DAVIS"),
+                          "--proposal-dir", str(tmp / "ab480" / "props_480x864"),
+                          "--out", str(tmp / "ab480" / "res_480x864_kernels"),
+                          "--chunk", "4", "--device", "cuda", "--set", *sets])
+    kl = expect_launches("11d 480x864 on the kernels", launch_counts(),
+                         {"fused_pool_cost_match": frames,
+                          "fused_resolve_upsample": frames})
+    log(f"11d 480x864 on the kernels (--set {' '.join(sets)}): J&F {s['J&F']:.4f} "
+        f"(as saved {r['ab_480p']['480x864']['J&F']:.4f}); launches {kl}")
+    kcfg = cfg0.override(**{"model.image_size": (480, 864), **CKPT_RUNS["kernels"]})
+    M, N = kcfg.matching.max_templates, kcfg.matching.max_proposals
+    b1 = check_matcher("480x864", (1, M, N, 30 * 54, kcfg.model.feature_dim,
+                                   int(np.prod(kcfg.cost.mask_size))),
+                       timed=False, iters=kcfg.matching.sinkhorn_iters,
+                       epsilon=kcfg.matching.epsilon)
+    check_resolve("480x864", 1, M, *mask_hw(kcfg), 480, 864)
+    b4 = {"box": check_multilevel("box (480x864, extract)", (7, 7), K=128,
+                                  image=(480, 864), timed=False),
+          "mask": check_multilevel("mask (480x864, extract, 8 detections)", (14, 14),
+                                   K=8, image=(480, 864), timed=False)}
+    res["ab_480p"] = {**r, "b4_launches": n_b4, "kernels_480x864": {
+        "jf": s["J&F"], "launches": kl}, "b4_max_abs_err": b4, "b1_checked": b1}
+    reset_launch_counts()
+    r, line = quiet(load_tool("ab_decoder_arch_torch").main,
+                    [*AB_DECODER_ARGS, "--device", "cuda"])
+    res["ab_decoder_arch"] = {"result": r, "launches": launch_counts()}
+    log(f"11d ab_decoder_arch_torch {' '.join(AB_DECODER_ARGS)}: {line}")
+    return res
+
 
 def main() -> int:
     if not (ROOT / "dmm_net_tpu_torch" / "csrc").is_dir():
@@ -2898,6 +3305,10 @@ def main() -> int:
 
     smi = smi_line()
     kind, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
+    t_start = time.perf_counter()
+
+    def mark(what):
+        log(f"[{time.perf_counter() - t_start:.1f} s] {what} done")
     log(f"gpu: {smi}; torch {torch.__version__} cuda {torch.version.cuda}; "
         f"tf32 cudnn={torch.backends.cudnn.allow_tf32} "
         f"matmul={torch.backends.cuda.matmul.allow_tf32}")
@@ -2940,6 +3351,7 @@ def main() -> int:
         f"{b4_img['ms']:.4f} ms, plain {b4_img['plain_ms']:.4f} ms, bound "
         f"{b4_img['bound_ms']:.4f} ms")
 
+    mark("phases 2-3")
     counts, fps, engine = main_path()
     det_counts, det_ms, det_prof = detector_path(engine)
     legacy_launches, legacy = legacy_path()
@@ -2952,14 +3364,18 @@ def main() -> int:
         yt_root, yt_cache, ex_counts, ex_ms = extract_path(tmp)
         p4_launches, p4 = ytvos_p4_path(tmp, yt_root, yt_cache)
         yt_g, yt_launches = ytvos_ckpt_path(tmp)
+        native11 = native_path(tmp, yt_root, yt_cache)          # 11a on 6b's tree
+        mark("phases 4-6, 11a")
         b1_bwd = b1_backward_check()
         p5_counts, p5_bwd_calls, p5 = p5_train_path(tmp)
     ckpt_train, ckpt_train_launches, ckpt_train_bwd_calls = ckpt_train_path()
     example = example_path()
+    mark("phase 7")
     b4_extract = check_multilevel("mask (extract_proposals, 64 detections)",
                                   (14, 14), K=64, timed=False)
     small_reference()
     small_detector_reference()
+    mark("phase 8")
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         b4_bwd, b4_bwd_image = b4_backward_check()
@@ -2968,10 +3384,22 @@ def main() -> int:
         learn_file, learn_counts, learn_bwd, learn = learning_path(tmp)
         system, system_launches = full_system_path(learn_file)
     dcn_counts, dcn_bwd, dcn = dcn_path()
+    mark("phase 9")
     mesh = {"one_rank_10a": mesh_one_rank_path(), **mesh_two_rank_path(engine)}
     prof10 = profiling_debug_path(engine)
     with tempfile.TemporaryDirectory() as tmp:
         ex10 = examples_importers_path(Path(tmp))
+    mark("phase 10")
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        drill11 = fallback_drill_path(tmp)
+        mark("phase 11b")
+        chain11, work = chain_path(tmp)
+        mark("phase 11c")
+        ab11 = ab_tools_path(tmp, work)
+    mark("phase 11d")
+    ab_l, ab_480 = ab11["ab_logits_res"]["launches"], ab11["ab_480p"]
+    chain = chain11["stages"]
 
     def by_path(k):
         return {"p3_stream": counts[k], "legacy_p3": legacy_launches[k],
@@ -2982,7 +3410,13 @@ def main() -> int:
                 "ytvos_ckpt_kernels": yt_launches["kernels"][k],
                 "p5_train": p5_counts[k],
                 "ckpt_train_kernels": ckpt_train_launches["kernels"][k],
-                "full_system_kernels_9e": system_launches["kernels"][k]}
+                "full_system_kernels_9e": system_launches["kernels"][k],
+                "dayone_fallback_kernels_11b": drill11["launches"]["kernels"][k],
+                "chain_11c": sum(st["launches"][k] for st in chain.values()
+                                 if "launches" in st),
+                "ab_logits_res_11d": ab_l[k],
+                "ab_480p_kernels_480x864_11d": ab_480["kernels_480x864"]["launches"][k],
+                "ab_decoder_arch_11d": ab11["ab_decoder_arch"]["launches"][k]}
 
     def mesh_by_path(k):
         """Phase 10's launches; a rank of 10b-10d counts its own."""
@@ -3026,7 +3460,9 @@ def main() -> int:
                                 "mesh_p5_train_1rank_10a":
                                     mesh["one_rank_10a"]["b1_backward"],
                                 "mesh_p5_train_2rank_10b_per_rank":
-                                    mesh["p5"]["b1_backward_per_rank"]},
+                                    mesh["p5"]["b1_backward_per_rank"],
+                                "chain_dmm_11c": chain["dmm"]["backward_calls"][
+                                    "fused_pool_cost_match"]},
                  shape="p5_train B=4 M=8 N=64 P=448 D=256 Pc=4096, epsilon 0.03",
                  note="ms: the backward alone (the plain recompute and its "
                       "VJP) after B1's kernel forward; plain_ms: the "
@@ -3064,7 +3500,10 @@ def main() -> int:
                                **{f"full_system_{k}_9e": v["roi_align"]
                                   for k, v in system_launches.items()},
                                "dcn_9f": dcn_counts["roi_align"],
-                               **mesh_by_path("roi_align")},
+                               **mesh_by_path("roi_align"),
+                               **{f"chain_{k}_11c": chain[k]["launches"]["roi_align"]
+                                  for k in ("detector", "dmm", "full_system", "drill")},
+                               "ab_480p_11d": ab_480["b4_launches"]},
              # B4' has no kernel of its own: its numbers ride on B4's entry
              backward=dict(
                  name="B4' (_MultilevelRoiAlign.backward)",
@@ -3075,7 +3514,9 @@ def main() -> int:
                  calls_by_path={"r50_train_9b": r50_bwd, "train_steps_9c": steps9c_bwd,
                                 "learning_9d": learn_bwd, "dcn_9f": dcn_bwd,
                                 "mesh_detector_10d_per_rank":
-                                    mesh["detector"]["b4_backward_per_rank"]},
+                                    mesh["detector"]["b4_backward_per_rank"],
+                                "chain_detector_11c":
+                                    chain["detector"]["backward_calls"]["roi_align"]},
                  shape="per train image: box head K=32 -> 7x7 + mask head K=32 "
                        "-> 14x14, C=256, 256x448 pyramid",
                  note="ms: the backward alone (the plain recompute on all four "
@@ -3117,7 +3558,12 @@ def main() -> int:
                       "jax_full_system_planted_jf": JAX_FULL_SYSTEM_PLANTED_JF,
                       "full_system_floors": FULL_SYSTEM_FLOORS,
                       "dcn": dcn, "mesh_10a_10d": mesh,
-                      "profiling_10e": prof10, "examples_10f": ex10}),
+                      "profiling_10e": prof10, "examples_10f": ex10,
+                      "native_11a": native11, "dayone_11b": drill11,
+                      "chain_11c": chain11, "ab_tools_11d": {
+                          "ab_logits_res": ab11["ab_logits_res"],
+                          "ab_480p": {k: v for k, v in ab_480.items()},
+                          "ab_decoder_arch": ab11["ab_decoder_arch"]}}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

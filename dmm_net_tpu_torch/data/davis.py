@@ -11,9 +11,11 @@ boxes) with the JAX package's seeds, so both packages see the same inputs.
 
 Counterpart of the JAX package's data/davis.py: the inference streams and
 the training clips (``clip_batches``).
-Images are decoded with PIL, imported only when a file is read; frames are
-resized with PIL's BILINEAR and labels with NEAREST, as the JAX package's
-PIL path does.
+Frames and annotations are decoded as the JAX package's reader decodes
+them, through ``data/native_loader.py``: the C++ loader when it builds
+(antialiased bilinear frames, nearest labels), else PIL (BILINEAR frames,
+NEAREST labels); the reader says which once. Cached proposal masks are
+resized with PIL's NEAREST in both packages.
 """
 
 from __future__ import annotations
@@ -24,12 +26,8 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
+from dmm_net_tpu_torch.data import native_loader
 from dmm_net_tpu_torch.ops import rle as rle_codec
-
-
-def _open(path: str):
-    from PIL import Image
-    return Image.open(path)
 
 
 def _resize(im, hw: Tuple[int, int], nearest: bool) -> np.ndarray:
@@ -59,6 +57,7 @@ class DavisDataset:
             img_root = os.path.join(root, "JPEGImages", "480p")
             self.sequences = (sorted(os.listdir(img_root))
                               if os.path.isdir(img_root) else [])
+        native_loader.announce()
 
     def frame_paths(self, seq: str) -> List[str]:
         d = os.path.join(self.root, "JPEGImages", "480p", seq)
@@ -72,21 +71,17 @@ class DavisDataset:
 
     def load_frame(self, path: str) -> np.ndarray:
         """(H, W, 3) uint8 RGB at image_size."""
-        with _open(path) as im:
-            return _resize(im.convert("RGB"), self.image_size, nearest=False)
+        return native_loader.load_rgb_batch([path], self.image_size)[0]
 
     def load_annotation(self, path: str) -> np.ndarray:
         """Palette-index label map, nearest-resized to image_size."""
-        with _open(path) as im:
-            a = _resize(im, self.image_size, nearest=True)
-        return a[..., 0] if a.ndim == 3 else a       # RGB-coded labels
+        return native_loader.load_label_batch([path], self.image_size)[0]
 
     def load_annotation_native(self, path: str) -> np.ndarray:
         """Palette-index label map at the annotation's native resolution
         (where the official protocol scores)."""
-        with _open(path) as im:
-            a = np.asarray(im)
-        return a[..., 0] if a.ndim == 3 else a
+        a = native_loader.load_label_native_size(path)
+        return a[..., 0] if a.ndim == 3 else a       # RGB-coded labels
 
     def load_proposals(self, seq: str, t: int,
                        gt_labels: Optional[np.ndarray] = None,

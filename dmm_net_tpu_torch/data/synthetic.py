@@ -4,11 +4,13 @@ A copy of the JAX package's data/synthetic.py: the same seed gives
 bit-equal arrays in both packages. Each video holds moving rectangles and
 circles over a textured background; proposals are jittered ground-truth
 masks plus decoys, so the matcher has a planted optimal assignment and a
-trained model scores J&F near 1.
+trained model scores J&F near 1. ``write_native_davis_tree`` writes such
+videos as a DAVIS-layout tree at the native 854x480, the day-one drill's.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Dict
 
 import numpy as np
@@ -215,3 +217,42 @@ def synthetic_clip_batch(seed: int = 0, batch: int = 2, T: int = 4,
         "tmpl_valid": np.stack([pad_m(s["tmpl_valid"], 0) for s in seqs]),
     }
     return out
+
+
+NATIVE_HW = (480, 854)     # DAVIS-2017's native 480p frame size
+
+
+def write_native_davis_tree(root: str, T: int = 4, seeds=(7001,)) -> str:
+    """A DAVIS-2017-layout tree of synthetic videos at the native 854x480,
+    as the JAX package's day-one drill writes it (``tests/test_dayone_cli.py``
+    ``_synthetic_davis_tree``; held-out seeds: the training pools use seeds
+    < 64 and >= 10000): ``JPEGImages/480p/seq<i>/<t>.jpg`` (JPEG quality 95),
+    ``Annotations/480p/seq<i>/<t>.png`` (8-bit index maps, object m as m+1)
+    and ``ImageSets/2017/{train,val}.txt``. The same seeds give the same
+    files in both packages. Needs PIL. Returns ``root``."""
+    from PIL import Image
+    H, W = NATIVE_HW
+    names = []
+    for i, seed in enumerate(seeds):
+        seq = f"seq{i}"
+        names.append(seq)
+        s = synthetic_sequence(seed=seed, T=T, H=H, W=W, num_objects=2,
+                               num_proposals=4)
+        jdir = os.path.join(root, "JPEGImages", "480p", seq)
+        adir = os.path.join(root, "Annotations", "480p", seq)
+        os.makedirs(jdir)
+        os.makedirs(adir)
+        for t in range(T):
+            img = (s["frames"][t] * 255).astype(np.uint8)
+            Image.fromarray(img).save(os.path.join(jdir, f"{t:05d}.jpg"),
+                                      quality=95)
+            lab = np.zeros((H, W), np.uint8)
+            for m in range(s["gt_masks"].shape[1]):
+                lab[s["gt_masks"][t, m] > 0.5] = m + 1
+            Image.fromarray(lab).save(os.path.join(adir, f"{t:05d}.png"))
+    os.makedirs(os.path.join(root, "ImageSets", "2017"))
+    for split in ("train", "val"):
+        with open(os.path.join(root, "ImageSets", "2017", f"{split}.txt"),
+                  "w") as f:
+            f.write("\n".join(names) + "\n")
+    return root

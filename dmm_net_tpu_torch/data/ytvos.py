@@ -17,9 +17,9 @@ What differs from DAVIS:
 
 Counterpart of the JAX package's data/ytvos.py: the inference streams and
 the training clips (``clip_batches``, with ``live_from`` and
-``gt_valid``). Images are
-decoded with PIL, imported only when a file is read, with the resizes of
-the port's DAVIS reader (BILINEAR frames, NEAREST labels and masks).
+``gt_valid``). Frames and annotations are decoded as the port's DAVIS
+reader decodes them (``data/native_loader.py``: the C++ loader when it
+builds, else PIL); cached proposal masks are resized with PIL's NEAREST.
 """
 
 from __future__ import annotations
@@ -31,7 +31,8 @@ from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 
-from dmm_net_tpu_torch.data.davis import _open, _resize
+from dmm_net_tpu_torch.data import native_loader
+from dmm_net_tpu_torch.data.davis import _resize
 from dmm_net_tpu_torch.eval.davis_jf import upsample_labels
 from dmm_net_tpu_torch.infer.engine import InferenceEngine
 from dmm_net_tpu_torch.ops import rle as rle_codec
@@ -60,6 +61,7 @@ class YTVOSDataset:
                          (sorted(os.listdir(img_root))
                           if os.path.isdir(img_root) else [])}
         self.videos = sorted(self.meta)
+        native_loader.announce()
 
     def frame_paths(self, vid: str) -> List[str]:
         d = os.path.join(self.root, self.split, "JPEGImages", vid)
@@ -76,14 +78,11 @@ class YTVOSDataset:
 
     def load_frame(self, path: str) -> np.ndarray:
         """(H, W, 3) uint8 RGB at image_size."""
-        with _open(path) as im:
-            return _resize(im.convert("RGB"), self.image_size, nearest=False)
+        return native_loader.load_rgb_batch([path], self.image_size)[0]
 
     def load_annotation(self, path: str) -> np.ndarray:
         """Palette-index label map, nearest-resized to image_size."""
-        with _open(path) as im:
-            a = _resize(im, self.image_size, nearest=True)
-        return a[..., 0] if a.ndim == 3 else a
+        return native_loader.load_label_batch([path], self.image_size)[0]
 
     def object_first_frames(self, vid: str) -> Dict[int, str]:
         """Object id -> stem of its first annotated frame: from meta.json,

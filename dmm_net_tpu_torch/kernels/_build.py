@@ -13,6 +13,16 @@ one ``nvcc`` per source at once and waits for all of them.
 Every C entry point returns ``cudaGetLastError()``; ``check`` raises when it
 is not 0. The launch counters live here too: a wrapper calls ``count(name)``
 where it launches its kernel, and nowhere else.
+
+The host libraries (``csrc/host/<name>.cpp``: the image loader and the RLE
+codec) are built apart, by ``g++`` and without ``nvcc``, so a machine with
+no CUDA toolkit builds them too (``host_library``):
+
+    g++ -std=c++17 -shared -fPIC -O3 -march=native -o _build/lib<name>-<hash>.so \
+        csrc/host/<name>.cpp [-ljpeg -lpng -lpthread]
+
+Their hash also covers the host CPU's name and flags: ``-march=native`` code
+built on one machine may not run on another.
 """
 
 from __future__ import annotations
@@ -20,8 +30,10 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 from typing import Dict, Iterable
 
@@ -32,7 +44,14 @@ SOURCES = ("matcher", "resolve", "roi_align")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
+HOST_DIR = SRC_DIR / "host"
+HOST_FLAGS = ("-std=c++17", "-shared", "-fPIC", "-O3", "-march=native")
+HOST_LINK = {"imgloader": ("-ljpeg", "-lpng", "-lpthread"), "maskrle": ()}
+HOST_HEADERS = {"imgloader": ("jpeglib.h", "png.h"), "maskrle": ()}
+
 _libs: Dict[str, ctypes.CDLL] = {}
+_host_libs: Dict[str, ctypes.CDLL] = {}
+_host_lock = threading.Lock()
 _LAUNCHES: Dict[str, int] = {"fused_pool_cost_match": 0,
                              "fused_resolve_upsample": 0,
                              "fused_cost_match": 0,
@@ -143,6 +162,67 @@ def library(name: str) -> ctypes.CDLL:
     return _libs[name]
 
 
+def _host_cpu() -> bytes:
+    """The machine and its CPU's model and flags, for the host libraries'
+    hash."""
+    ident = [platform.machine()]
+    try:
+        with open("/proc/cpuinfo") as f:
+            ident += [ln for ln in f if ln.startswith(("model name", "flags"))][:2]
+    except OSError:
+        ident.append(platform.processor())
+    return "".join(ident).encode()
+
+
+def host_headers_missing(name: str) -> list:
+    """The system headers of ``csrc/host/<name>.cpp`` that g++ cannot find
+    (libjpeg's and libpng's for the image loader); all of them without g++."""
+    gxx = shutil.which("g++")
+    missing = []
+    for h in HOST_HEADERS[name]:
+        r = None if gxx is None else subprocess.run(
+            [gxx, "-E", "-x", "c++", "-"], input=f"#include <cstdio>\n#include <{h}>\n",
+            stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL, text=True)
+        if r is None or r.returncode != 0:
+            missing.append(h)
+    return missing
+
+
+def _host_library_path(name: str) -> Path:
+    src = (HOST_DIR / f"{name}.cpp").read_bytes()
+    flags = " ".join(HOST_FLAGS + HOST_LINK[name]).encode()
+    digest = hashlib.sha256(src + flags + _host_cpu()).hexdigest()
+    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+
+
+def host_library(name: str) -> ctypes.CDLL:
+    """Build ``csrc/host/<name>.cpp`` with g++ unless its library exists, and
+    load it (once per process). Raises RuntimeError with the compiler's
+    output when it cannot be built, OSError when it cannot be loaded."""
+    with _host_lock:
+        if name in _host_libs:
+            return _host_libs[name]
+        lib = _host_library_path(name)
+        if not lib.exists():
+            gxx = shutil.which("g++")
+            if gxx is None:
+                raise RuntimeError("g++ not found on PATH (the host libraries "
+                                   "are built at first use)")
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [gxx, *HOST_FLAGS, "-o", str(tmp),
+                   str(HOST_DIR / f"{name}.cpp"), *HOST_LINK[name]]
+            r = subprocess.run(cmd, stdout=subprocess.PIPE,
+                               stderr=subprocess.STDOUT, text=True)
+            if r.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                raise RuntimeError(f"g++ failed for csrc/host/{name}.cpp "
+                                   f"(exit {r.returncode}):\n{r.stdout[-2000:]}")
+            os.replace(tmp, lib)   # atomic, as the CUDA builds
+        _host_libs[name] = ctypes.CDLL(str(lib))
+        return _host_libs[name]
+
+
 def check(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"CUDA launch of {what} failed with cudaError {err}")
@@ -162,6 +242,20 @@ def count_backward(name: str) -> None:
 
 def backward_calls() -> Dict[str, int]:
     return dict(_BACKWARD_CALLS)
+
+
+def cuda_report(device) -> str:
+    """One JSON line for a CLI's output on CUDA: this process's launch
+    counts, backward calls and peak device memory in GiB; "" off CUDA."""
+    import json
+
+    import torch
+    if torch.device(device).type != "cuda":
+        return ""
+    peak = torch.cuda.max_memory_allocated(device) / 2 ** 30
+    return "cuda: " + json.dumps({"launches": launch_counts(),
+                                  "backward_calls": backward_calls(),
+                                  "peak_gib": peak})
 
 
 def reset_launch_counts() -> None:

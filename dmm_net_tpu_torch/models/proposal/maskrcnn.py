@@ -103,6 +103,14 @@ class MaskHead(nn.Module):
         return self.mask_fcn_logits(F.relu(self.conv5_mask(x)))
 
 
+def top_k_indices(scores: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices of the k largest of 1-D ``scores`` (all of them if fewer), in
+    descending order, tied scores in index order as ``jax.lax.top_k`` gives
+    them. ``torch.topk`` orders ties as it likes, and the proposals' order
+    (and with it which of two tied boxes NMS keeps) would follow."""
+    return torch.sort(scores, descending=True, stable=True).indices[:k]
+
+
 def _multilevel_roi_align(pyramid: Dict[str, torch.Tensor], boxes: torch.Tensor,
                           out_size: Tuple[int, int]) -> torch.Tensor:
     """ROI-Align of each box on its own level of p2..p5, level
@@ -190,9 +198,8 @@ class MaskRCNN(nn.Module):
         caller in training) -> per-level top-k, joint NMS: proposals
         (post_nms_top_n, 4) and their validity."""
         with record_function("detector/rpn"):
-            cand = torch.cat([
-                torch.topk(obj[a:b], min(self.pre_nms_top_n, b - a)).indices + a
-                for a, b in self._slices])
+            cand = torch.cat([top_k_indices(obj[a:b], self.pre_nms_top_n) + a
+                              for a, b in self._slices])
             cand_boxes = clip_to_image(
                 decode_boxes(deltas[cand], self.anchors[cand]), self.image_size)
             wh_ok = ((cand_boxes[:, 2] - cand_boxes[:, 0] > 1e-3)

@@ -20,10 +20,12 @@ into ``{"__msgpack_chunked_array__": True, "shape", "chunks"}`` maps.
 ``load_msgpack_ckpt`` returns the same tree as ``msgpack_restore``: dicts
 with str keys, lists, and read-only numpy leaves of the stored dtype
 (bfloat16 leaves, which numpy cannot hold, come back as float32, exactly).
-``msgpack_serialize`` writes str-keyed dicts of numeric arrays as flax's
-``msgpack_serialize`` does, byte for byte: the detector's ``{"params",
-"batch_stats"}`` files that train_proposal_torch.py saves are read by both
-packages.
+``msgpack_serialize`` writes str-keyed dicts of numeric arrays, str, int,
+float, bool, None and lists as flax's ``msgpack_serialize`` does, byte for
+byte: the detector's ``{"params", "batch_stats"}`` files that
+train_proposal_torch.py saves and the DMM's ``{"config", "variables"}``
+blobs that examples/train_and_eval_synthetic_torch.py saves are read by
+both packages.
 """
 
 from __future__ import annotations
@@ -177,6 +179,19 @@ def _ndarray_ext(arr: np.ndarray) -> bytes:
     return head + struct.pack(">b", _EXT_NDARRAY) + data
 
 
+def _int(v: int) -> bytes:
+    """The smallest msgpack form of an int."""
+    if v >= 0:
+        return _uint(v)
+    if v >= -32:
+        return struct.pack(">b", v)
+    for code, fmt, bits in ((0xD0, "b", 7), (0xD1, "h", 15), (0xD2, "i", 31),
+                            (0xD3, "q", 63)):
+        if v >= -(1 << bits):
+            return struct.pack(">B" + fmt, code, v)
+    raise OverflowError(f"msgpack: int {v} out of range")
+
+
 def _pack(tree, out: list) -> None:
     if type(tree) is dict:
         out.append(_length(len(tree), 0x80, 15, (None, 0xDE, 0xDF)))
@@ -185,17 +200,33 @@ def _pack(tree, out: list) -> None:
                 raise TypeError(f"msgpack: key {k!r} is not a str")
             out.append(_str(k))
             _pack(tree[k], out)
+    elif type(tree) is list:
+        out.append(_length(len(tree), 0x90, 15, (None, 0xDC, 0xDD)))
+        for v in tree:
+            _pack(v, out)
     elif isinstance(tree, np.ndarray):
         out.append(_ndarray_ext(tree))
+    elif tree is None:
+        out.append(b"\xc0")
+    elif type(tree) is bool:
+        out.append(b"\xc3" if tree else b"\xc2")
+    elif type(tree) is int:
+        out.append(_int(tree))
+    elif type(tree) is float:
+        out.append(struct.pack(">Bd", 0xCB, tree))
+    elif type(tree) is str:
+        out.append(_str(tree))
     else:
         raise TypeError(f"msgpack: cannot write {type(tree).__name__}")
 
 
 def msgpack_serialize(tree) -> bytes:
-    """Encode nested str-keyed dicts of numeric numpy arrays (the
-    ``{"params", "batch_stats"}`` trees of ``weights.to_flax_variables``)
-    byte for byte as ``flax.serialization.msgpack_serialize`` does; both
-    ``msgpack_restore`` and flax read it. Anything else raises."""
+    """Encode nested str-keyed dicts and lists of numeric numpy arrays, str,
+    int, float, bool and None (a ``{"config": Config.to_dict(),
+    "variables": weights.to_flax_variables(model)}`` blob, or the variables
+    alone) byte for byte as ``flax.serialization.msgpack_serialize`` does;
+    both ``msgpack_restore`` and flax read it. Anything else (a tuple, a
+    numpy scalar) raises."""
     out: list = []
     _pack(tree, out)
     return b"".join(out)

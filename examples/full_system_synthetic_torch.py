@@ -157,6 +157,10 @@ def main(argv=None):
     print(f"  detector-proposal recall@0.5 : {rec:.3f}")
     print(f"  J&F with DETECTOR proposals  : {jf_det:.3f}")
     print(f"  J&F with PLANTED proposals   : {jf_gt:.3f}")
+    from dmm_net_tpu_torch.kernels import _build
+    report = _build.cuda_report(dev)
+    if report:
+        print(report, flush=True)
     if jf_det < args.min_jf or rec < args.min_recall:
         print(f"FAIL: detector-proposal J&F {jf_det:.3f} < {args.min_jf} "
               f"or recall {rec:.3f} < {args.min_recall}")

@@ -51,9 +51,11 @@ def main(argv=None):
                     help="synthetic batches are made once, on the device, "
                     "and cycled")
     ap.add_argument("--save", default=None,
-                    help="write the trained model as a torch checkpoint "
-                    "(served by infer_torch.py --ckpt); named *.unverified "
-                    "until the J&F gate passes")
+                    help="write the trained model as the JAX example's flax "
+                    "msgpack blob {config, variables} (served by "
+                    "infer_torch.py --ckpt, infer.py --ckpt and both "
+                    "full-system examples); named *.unverified until the "
+                    "J&F gate passes")
     ap.add_argument("--mrcnn", default=None,
                     help="train on detector proposals: replace the planted "
                     "proposals of every training batch with detections of "
@@ -157,7 +159,7 @@ def main(argv=None):
             print(f"step {i + 1}: loss={float(metrics['loss']):.4f}")
     sync()
     sps = (args.steps - 1) / max(time.time() - t0, 1e-9)
-    print(f"steps/sec: {sps:.2f}")
+    print(f"steps/sec: {sps:.2f} ({1e3 / max(sps, 1e-9):.1f} ms per step)")
     final_loss = float(metrics["loss"]) if args.steps else None
 
     saved_tmp = None
@@ -165,9 +167,12 @@ def main(argv=None):
         os.makedirs(os.path.dirname(os.path.abspath(args.save)) or ".",
                     exist_ok=True)
         saved_tmp = args.save + ".unverified"
-        torch.save({"step": state.step, "model": state.model.state_dict(),
-                    "config": cfg.to_dict()}, saved_tmp)
-        print(f"saved (unverified) model + config to {saved_tmp}")
+        from dmm_net_tpu_torch.utils.checkpoint import msgpack_serialize
+        from dmm_net_tpu_torch.weights import to_flax_variables
+        with open(saved_tmp, "wb") as f:
+            f.write(msgpack_serialize({"config": cfg.to_dict(),
+                                       "variables": to_flax_variables(state.model)}))
+        print(f"saved (unverified) DMM variables + config to {saved_tmp}")
 
     model = state.model.eval()       # BN back on its running statistics
     engine = InferenceEngine(cfg, model=model, update_templates=True,
@@ -246,6 +251,10 @@ def main(argv=None):
 
     result = {"jf": r, "steps_per_sec": sps, "steps": args.steps,
               "final_loss": final_loss}
+    from dmm_net_tpu_torch.kernels import _build
+    report = _build.cuda_report(device)
+    if report:
+        print(report, flush=True)
     if r["J&F"] < args.min_jf:
         print(f"FAIL: held-out J&F {r['J&F']:.3f} < --min-jf {args.min_jf}"
               + (f" (model left at {saved_tmp}, not promoted)"

@@ -5,8 +5,6 @@ stream batching and proposal compaction."""
 
 import json
 import os
-import subprocess
-import sys
 from pathlib import Path
 
 import numpy as np
@@ -33,6 +31,8 @@ from dmm_net_tpu_torch.infer.compact import compact_stream
 from dmm_net_tpu_torch.infer.engine import DAVIS_PALETTE, InferenceEngine
 from dmm_net_tpu_torch.ops import rle
 from dmm_net_tpu_torch.utils.checkpoint import load_msgpack_ckpt
+from test_torch_port_train_step import few_threads  # noqa: F401
+from torch_port_native import pin_both_native, pin_port_to_pil
 
 _ROOT = Path(__file__).resolve().parent.parent
 _ARTIFACT = _ROOT / "artifacts" / "dmm128_fallback.msgpack"
@@ -127,11 +127,19 @@ def _davis_tree(root, seeds=(7003, 7004), T=4, H0=120, W0=210, cache=None):
 
 @pytest.fixture
 def jax_reads_with_pil(monkeypatch):
-    """The JAX reader decodes through its C++ loader when that is built,
-    which rounds within +-1 of PIL (dmm_net_tpu/data/native_loader.py); the
-    port reads with PIL, so hold it to the JAX reader's PIL path, the
-    oracle of tests/test_native_loader.py."""
+    """Both packages' readers decode through their C++ loaders when those
+    are built, which round within +-1 of PIL (data/native_loader.py); hold
+    both to the PIL path, the oracle of tests/test_native_loader.py."""
     monkeypatch.setattr(jax_native_loader, "_native", lambda: None)
+    pin_port_to_pil(monkeypatch)
+
+
+@pytest.fixture
+def both_read_natively(monkeypatch, tmp_path):
+    """Both packages' readers decode with their C++ loaders: the JAX one
+    built from native/loader into this test's directory, the port's from
+    its copy in dmm_net_tpu_torch/csrc/host."""
+    pin_both_native(monkeypatch, jax_native_loader, tmp_path)
 
 
 def _assert_streams_equal(a, b):
@@ -166,6 +174,13 @@ def test_davis_stream_bit_equal(tmp_path, with_cache, jax_reads_with_pil):
     got = batch_sequence_streams([port.sequence_stream(n) for n in names * 2])
     want = jax_batch([ref.sequence_stream(n) for n in names * 2])
     _assert_streams_equal(got, want)
+
+
+@pytest.mark.parametrize("with_cache", [False, True])
+def test_davis_stream_bit_equal_native(tmp_path, with_cache, both_read_natively):
+    """The same with both packages decoding natively (JPEG frames, palette
+    labels, native-size annotations)."""
+    test_davis_stream_bit_equal(tmp_path, with_cache, None)
 
 
 def test_compact_stream_equal():
@@ -213,18 +228,17 @@ def test_write_png_reads_back_with_pil(tmp_path):
 
 
 def test_infer_cli_matches_jax_engine_and_scorer(tmp_path, jax_reads_with_pil):
-    """infer_torch.py on the fallback checkpoint (subprocess, CPU) against
-    the JAX engine and scorer run in-process on the same tree."""
+    """infer_torch.py on the fallback checkpoint (in-process, CPU, so that
+    the decode pin holds) against the JAX engine and scorer run in-process
+    on the same tree."""
+    import infer_torch
     root, out = str(tmp_path / "DAVIS"), str(tmp_path / "out")
     names = _davis_tree(root)
-    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    r = subprocess.run([sys.executable, str(_ROOT / "infer_torch.py"), "--ckpt",
-                        str(_ARTIFACT), "--davis-root", root, "--out", out,
-                        "--device", "cpu"], cwd=str(tmp_path), env=env,
-                       capture_output=True, text=True, timeout=600)
-    assert r.returncode == 0, r.stderr[-3000:]
+    summary = infer_torch.main(["--ckpt", str(_ARTIFACT), "--davis-root", root,
+                                "--out", out, "--device", "cpu"])
     with open(os.path.join(out, "results.json")) as f:
         got = json.load(f)
+    assert got == json.loads(json.dumps(summary))
     assert got["dispatch"] == "chunked_scan" and got["frames"] == 8
 
     port_cfg, variables = load_msgpack_ckpt(str(_ARTIFACT))
@@ -249,6 +263,11 @@ def test_infer_cli_matches_jax_engine_and_scorer(tmp_path, jax_reads_with_pil):
         assert abs(got["sequences"][name]["J&F"] - scores[-1]) <= 1e-3
     assert abs(got["J&F"] - np.mean(scores)) <= 1e-3
     assert got["J&F"] > 0.85                      # trained weights find the objects
+
+
+def test_infer_cli_matches_jax_engine_and_scorer_native(tmp_path, both_read_natively):
+    """The same with both packages decoding natively."""
+    test_infer_cli_matches_jax_engine_and_scorer(tmp_path, None)
 
 
 @pytest.mark.parametrize("run", ["as_saved", "kernels"])

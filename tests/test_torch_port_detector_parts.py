@@ -24,7 +24,7 @@ from dmm_net_tpu_torch.eval import detection_ap
 from dmm_net_tpu_torch.kernels import backward_calls, reset_launch_counts
 from dmm_net_tpu_torch.kernels.roi_align import multilevel_roi_align
 from dmm_net_tpu_torch.models.proposal import losses
-from dmm_net_tpu_torch.models.proposal.maskrcnn import MaskRCNN
+from dmm_net_tpu_torch.models.proposal.maskrcnn import MaskRCNN, top_k_indices
 from dmm_net_tpu_torch.models.resnet import backbone_by_name
 from dmm_net_tpu_torch.ops.deform_conv import DeformConv, deform_conv2d
 from dmm_net_tpu_torch.utils.checkpoint import msgpack_restore, msgpack_serialize
@@ -195,6 +195,18 @@ def test_box_and_mask_head_losses_match_jax(seed):
 # B4': the ROI-Align backward
 # ---------------------------------------------------------------------------
 
+@pytest.mark.parametrize("n,k", [(1344, 1000), (336, 1000), (21504, 1000)])
+def test_proposal_top_k_orders_ties_as_jax(n, k):
+    """The RPN's per-level top-k (a level of the small detector's anchors,
+    and of the 256x448 detector's p2) on scores with many exact ties, as
+    random or flat-image weights give: the same indices in the same order
+    as jax.lax.top_k."""
+    scores = np.random.RandomState(n).randint(0, 6, n).astype(np.float32)
+    want = np.asarray(jax.lax.top_k(jnp.asarray(scores), min(k, n))[1])
+    got = top_k_indices(T(scores), k).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
 def test_b4_backward_passes_gradcheck_in_float64():
     """The Function's backward (autograd through the plain version) against
     finite differences, float64, at a tiny size with boxes on every level."""
@@ -274,17 +286,22 @@ def test_detection_ap_matches_jax(seed, iou_type):
 
 def test_msgpack_both_ways_with_flax():
     """The tree train_proposal_torch.py --save writes (a seeded small
-    detector's to_flax_variables, keys in module order) and one with a
-    float16, an int32, a bool and an empty leaf: the port's bytes equal
-    flax's, each package reads the other's bytes into identical arrays, and
-    a leaf the writer has no form for raises."""
+    detector's to_flax_variables, keys in module order), one with a
+    float16, an int32, a bool and an empty leaf, and one with the values a
+    config dict holds (str, ints of every width, float, bool, None, lists):
+    the port's bytes equal flax's, each package reads the other's bytes
+    into identical values, and a value the writer has no form for (a tuple,
+    a numpy scalar, a non-str key) raises."""
     rng = np.random.RandomState(0)
     det = to_flax_variables(MaskRCNN(image_size=(64, 128), backbone_name="resnet18",
                                      num_classes=8, device="cpu", seed=1))
     odd = {"z" * 40: {"half": rng.randn(17).astype(np.float16),
                       "ints": np.arange(-3, 300, dtype=np.int32)},
            "flags": rng.rand(5) > 0.5, "empty": np.zeros((0, 3), np.float32)}
-    for tree in (det, odd):
+    config = {"name": "x" * 40, "n": 3, "big": 2 ** 40, "neg": [-1, -33, -200, -2 ** 33],
+              "f": 0.03, "b": True, "none": None, "size": [256, 448],
+              "x": [np.zeros(2, np.float32)], "nested": {"k": "v", "e": []}}
+    for tree in (det, odd, config):
         mine, theirs = msgpack_serialize(tree), serialization.msgpack_serialize(tree)
         assert mine == theirs
         for a, b in ((serialization.msgpack_restore(mine), tree),
@@ -295,7 +312,7 @@ def test_msgpack_both_ways_with_flax():
             for (path, x), (_, y) in zip(la, lb):
                 np.testing.assert_array_equal(np.asarray(x), np.asarray(y))
                 assert np.asarray(x).dtype == np.asarray(y).dtype, path
-    for bad in ({"n": 3}, {"x": [np.zeros(2)]}, {1: np.zeros(2)}):
+    for bad in ({"t": (1, 2)}, {"s": np.float32(1.0)}, {1: np.zeros(2)}):
         with pytest.raises(TypeError):
             msgpack_serialize(bad)
 

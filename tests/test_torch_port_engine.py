@@ -182,12 +182,21 @@ def test_port_imports_no_jax():
             "          'examples/full_system_synthetic_torch.py',\n"
             "          'examples/train_synthetic_torch.py',\n"
             "          'examples/infer_demo_torch.py',\n"
-            "          'examples/matcher_only_torch.py'):\n"
+            "          'examples/matcher_only_torch.py',\n"
+            "          'tools/ab_logits_res_torch.py',\n"
+            "          'tools/ab_480p_torch.py',\n"
+            "          'tools/ab_decoder_arch_torch.py',\n"
+            "          'tools/dayone_seeds_torch.py'):\n"
             "    s = u.spec_from_file_location('x', f)\n"
             "    s.loader.exec_module(u.module_from_spec(s))\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'flax', 'optax', 'cv2', 'dmm_net_tpu')]\n"
             "assert not bad, bad\n"
+            "from dmm_net_tpu_torch.data import native_loader\n"
+            "from dmm_net_tpu_torch.ops import rle\n"
+            "native_loader.available(), rle.available()\n"
+            "maps = open('/proc/self/maps').read()\n"
+            "assert '/native/loader/' not in maps and '/native/rle/' not in maps\n"
             "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = str(_ROOT)

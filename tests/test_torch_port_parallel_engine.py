@@ -124,7 +124,7 @@ def test_infer_cli_data_parallel_matches_jax_cli(tmp_path, monkeypatch,
     jax_infer.main()
     out = str(tmp_path / "port")
     r0, r1 = launch(ranks.cli_runs, 2, "cpu", str(cs.ROOT), "infer_torch",
-                    [[*common, "--out", out, "--device", "cpu"]])
+                    [[*common, "--out", out, "--device", "cpu"]], True)
     assert r1 == [None]
     got = r0[0]
     with open(tmp_path / "jax" / "results.json") as f:

@@ -35,6 +35,8 @@ from dmm_net_tpu_torch.infer.engine import InferenceEngine
 from dmm_net_tpu_torch.ops import rle
 
 import chip_smoke as cs
+from test_torch_port_train_step import few_threads  # noqa: F401
+from torch_port_native import pin_both_native, pin_port_to_pil
 
 _ROOT = Path(__file__).resolve().parent.parent
 _SPEC = importlib.util.spec_from_file_location(
@@ -48,10 +50,18 @@ _DET = dict(image_size=(64, 64), backbone_name="resnet18", num_classes=3)
 
 @pytest.fixture
 def jax_reads_with_pil(monkeypatch):
-    """The JAX readers decode through their C++ loader when it is built,
-    within +-1 of PIL; the port reads with PIL, so hold it to the JAX
-    readers' PIL path (the oracle of tests/test_native_loader.py)."""
+    """Both packages' readers decode through their C++ loaders when those
+    are built, within +-1 of PIL; hold both to the PIL path (the oracle of
+    tests/test_native_loader.py)."""
     monkeypatch.setattr(jax_native_loader, "_native", lambda: None)
+    pin_port_to_pil(monkeypatch)
+
+
+@pytest.fixture
+def both_read_natively(monkeypatch, tmp_path):
+    """Both packages' readers decode with their C++ loaders (the JAX one
+    built from native/loader into this test's directory)."""
+    pin_both_native(monkeypatch, jax_native_loader, tmp_path)
 
 
 # ---------------------------------------------------------------------------
@@ -212,43 +222,16 @@ def _davis_tree(root, T=3, hw=(50, 70)):
 
 
 @pytest.fixture(scope="module")
-def caches(tmp_path_factory):
-    """Seeded flax variables of the small detector as a msgpack file, and
-    the port tool's caches of a DAVIS tree (raw [0, 1] inputs) and of a
-    YouTube-VOS tree (ImageNet-normalised inputs)."""
-    tmp = tmp_path_factory.mktemp("caches")
+def jax_detector(tmp_path_factory):
+    """The small detector's seeded flax variables as a msgpack file, and the
+    JAX detector + paste on them, jitted once for the PIL and the native
+    caches' checks."""
     jmodel = JaxMaskRCNN(**_DET)
     shapes = jax.eval_shape(jmodel.init, jax.random.PRNGKey(0),
                             jnp.zeros((1, 64, 64, 3)))
     variables = _randomize(shapes, seed=2)
-    params = tmp / "maskrcnn.msgpack"
+    params = tmp_path_factory.mktemp("detector") / "maskrcnn.msgpack"
     params.write_bytes(serialization.msgpack_serialize(variables))
-    out = {}
-    for dataset, norm in (("davis", "raw01"), ("ytvos", "imagenet")):
-        root = tmp / dataset
-        if dataset == "davis":
-            _davis_tree(root)
-        else:
-            cs.write_ytvos_tree(root, seeds=(7601,), ids=((1, 2),), late=(2,),
-                                T=4, hw=(50, 70))
-        cache = tmp / f"props_{dataset}"
-        extract.main(["--dataset", dataset, "--root", str(root), "--out", str(cache),
-                      "--params", str(params), "--image-size", "64", "64",
-                      "--backbone", "resnet18", "--num-classes", "3",
-                      "--input-norm", norm, "--device", "cpu"])
-        out[dataset] = (root, cache, norm)
-    return jmodel, variables, out
-
-
-@pytest.mark.parametrize("dataset", ["davis", "ytvos"])
-def test_cache_tool_matches_jax_detector(caches, dataset, jax_reads_with_pil):
-    """Each frame's JSON against the JAX detector + paste + RLE on the same
-    frame: the same detections, boxes within 1e-3, scores within 1e-5,
-    decoded masks differing in < 1e-3 of the pixels."""
-    jmodel, variables, trees = caches
-    root, cache, norm = trees[dataset]
-    ds = (JaxDavis(str(root), image_size=(64, 64)) if dataset == "davis"
-          else JaxYTVOS(str(root), image_size=(64, 64)))
 
     @jax.jit
     def detect(img):
@@ -256,6 +239,56 @@ def test_cache_tool_matches_jax_detector(caches, dataset, jax_reads_with_pil):
         return (o["boxes"], o["scores"], o["valid"],
                 jax_paste_masks(o["masks"], o["boxes"], o["valid"], (64, 64)))
 
+    return params, detect
+
+
+def _caches(tmp, pil, jax_detector):
+    """The port tool's caches, made with the detector file of
+    ``jax_detector``, of a DAVIS tree (raw [0, 1] inputs) and of a
+    YouTube-VOS tree (ImageNet-normalised inputs), its frames decoded with
+    PIL (``pil``) or natively; and the JAX detector."""
+    params, detect = jax_detector
+    out = {}
+    with pytest.MonkeyPatch.context() as mp:
+        if pil:
+            pin_port_to_pil(mp)
+        for dataset, norm in (("davis", "raw01"), ("ytvos", "imagenet")):
+            root = tmp / dataset
+            if dataset == "davis":
+                _davis_tree(root)
+            else:
+                cs.write_ytvos_tree(root, seeds=(7601,), ids=((1, 2),), late=(2,),
+                                    T=4, hw=(50, 70))
+            cache = tmp / f"props_{dataset}"
+            extract.main(["--dataset", dataset, "--root", str(root), "--out",
+                          str(cache), "--params", str(params), "--image-size",
+                          "64", "64", "--backbone", "resnet18", "--num-classes",
+                          "3", "--input-norm", norm, "--device", "cpu"])
+            out[dataset] = (root, cache, norm)
+    return detect, out
+
+
+@pytest.fixture(scope="module")
+def caches(tmp_path_factory, jax_detector):
+    """_caches with PIL decode."""
+    return _caches(tmp_path_factory.mktemp("caches"), True, jax_detector)
+
+
+@pytest.fixture(scope="module")
+def native_caches(tmp_path_factory, jax_detector):
+    """_caches with the port's native decode."""
+    return _caches(tmp_path_factory.mktemp("native_caches"), False, jax_detector)
+
+
+@pytest.mark.parametrize("dataset", ["davis", "ytvos"])
+def test_cache_tool_matches_jax_detector(caches, dataset, jax_reads_with_pil):
+    """Each frame's JSON against the JAX detector + paste + RLE on the same
+    frame: the same detections, boxes within 1e-3, scores within 1e-5,
+    decoded masks differing in < 1e-3 of the pixels."""
+    detect, trees = caches
+    root, cache, norm = trees[dataset]
+    ds = (JaxDavis(str(root), image_size=(64, 64)) if dataset == "davis"
+          else JaxYTVOS(str(root), image_size=(64, 64)))
     n_det, mism = 0, []
     for seq in (ds.sequences if dataset == "davis" else ds.videos):
         for fp in ds.frame_paths(seq):
@@ -292,7 +325,7 @@ def test_caches_load_across_packages(caches, tmp_path, dataset, jax_reads_with_p
     """The port tool's cache read by the JAX readers gives the port readers'
     streams bit-equal; the same cache re-encoded by the JAX codec (the JAX
     tool's output format) reads back equal in both."""
-    _, _, trees = caches
+    _, trees = caches
     root, cache, _ = trees[dataset]
     jax_cache = tmp_path / "jax_props"
     for f in cache.rglob("*.json"):
@@ -316,6 +349,20 @@ def test_caches_load_across_packages(caches, tmp_path, dataset, jax_reads_with_p
                     assert x[k].dtype == y[k].dtype and np.array_equal(x[k], y[k]), k
                 n_valid += int(x["prop_valid"].sum())
         assert n_valid > 0
+
+
+@pytest.mark.parametrize("dataset", ["davis", "ytvos"])
+def test_cache_tool_matches_jax_detector_native(native_caches, dataset,
+                                                both_read_natively):
+    """The same with both packages decoding natively."""
+    test_cache_tool_matches_jax_detector(native_caches, dataset, None)
+
+
+@pytest.mark.parametrize("dataset", ["davis", "ytvos"])
+def test_caches_load_across_packages_native(native_caches, tmp_path, dataset,
+                                            both_read_natively):
+    """The same with both packages decoding natively."""
+    test_caches_load_across_packages(native_caches, tmp_path, dataset, None)
 
 
 def test_cache_tool_defaults_to_cuda(tmp_path):

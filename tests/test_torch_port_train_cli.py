@@ -115,13 +115,13 @@ def test_example_trains_scores_and_saves(tmp_path, capsys):
     detector (train_proposal_torch.py --steps 0 --save), its detections in
     place of the planted proposals."""
     example = _example()
-    save = tmp_path / "dmm.pt"
+    save = tmp_path / "dmm.msgpack"
     r = example.main(["--device", "cpu", "--steps", "3", "--size", "32",
                       "--eval-frames", "3", "--distinct-batches", "2",
                       "--min-jf", "0", "--save",
                       str(save), "--ablate"])
     assert r["steps"] == 3 and 0.0 <= r["jf"]["J&F"] <= 1.0
-    assert save.exists() and not (tmp_path / "dmm.pt.unverified").exists()
+    assert save.exists() and not (tmp_path / "dmm.msgpack.unverified").exists()
     import train_proposal_torch
     det = tmp_path / "det.msgpack"
     train_proposal_torch.main(["--device", "cpu", "--steps", "0",
@@ -174,11 +174,11 @@ def test_example_starts_from_jax_variables(tmp_path):
     blob.write_bytes(serialization.msgpack_serialize(
         {"config": cfg.to_dict(), "variables": jax.device_get(variables)}))
 
-    save = tmp_path / "dmm.pt"
+    save = tmp_path / "dmm.msgpack"
     _example().main(["--device", "cpu", "--steps", "1", "--size", str(S),
                      "--eval-frames", "3", "--distinct-batches", "1",
                      "--min-jf", "0", "--init", str(blob), "--save", str(save)])
-    got = torch.load(save, weights_only=True)["model"]
+    got = convert_flax_variables(load_msgpack_ckpt(str(save))[1])
     want = convert_flax_variables(load_msgpack_ckpt(str(blob))[1])
     assert want.keys() <= got.keys()
     assert all(torch.equal(got[k].float(), w.float()) for k, w in want.items())

@@ -16,14 +16,23 @@ from dmm_net_tpu_torch.data.davis import DavisDataset
 from dmm_net_tpu_torch.data.ytvos import YTVOSDataset
 from test_torch_port_train_step import few_threads  # noqa: F401
 from test_ytvos_train import _fake_ytvos_train
+from torch_port_native import pin_both_native, pin_port_to_pil
 
 
 @pytest.fixture
 def jax_reads_with_pil(monkeypatch):
-    """The JAX readers decode through their C++ loader when it is built,
-    within +-1 of PIL; the port reads with PIL, so hold it to the JAX
-    readers' PIL path."""
+    """Both packages' readers decode through their C++ loaders when those
+    are built, within +-1 of PIL; hold both to the PIL path (the oracle of
+    tests/test_native_loader.py)."""
     monkeypatch.setattr(jax_native_loader, "_native", lambda: None)
+    pin_port_to_pil(monkeypatch)
+
+
+@pytest.fixture
+def both_read_natively(monkeypatch, tmp_path):
+    """Both packages' readers decode with their C++ loaders (the JAX one
+    built from native/loader into this test's directory)."""
+    pin_both_native(monkeypatch, jax_native_loader, tmp_path)
 
 
 @pytest.mark.parametrize("uint8,size", [(True, (64, 64)), (False, (64, 96)),
@@ -86,3 +95,13 @@ def test_ytvos_clip_batches_match_jax(tmp_path, jax_reads_with_pil):
             assert x[k].dtype == y[k].dtype and np.array_equal(x[k], y[k]), k
         seen_late |= bool(x["live_from"].max() > 0)
     assert seen_late
+
+
+def test_davis_clip_batches_match_jax_native(tmp_path, both_read_natively):
+    """The same with both packages decoding natively."""
+    test_davis_clip_batches_match_jax(tmp_path, None)
+
+
+def test_ytvos_clip_batches_match_jax_native(tmp_path, both_read_natively):
+    """The same with both packages decoding natively."""
+    test_ytvos_clip_batches_match_jax(tmp_path, None)

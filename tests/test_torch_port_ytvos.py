@@ -24,6 +24,8 @@ from dmm_net_tpu_torch.utils.checkpoint import load_msgpack_ckpt
 import chip_smoke as cs
 import infer as jax_infer
 import infer_torch
+from test_torch_port_train_step import few_threads  # noqa: F401
+from torch_port_native import pin_both_native, pin_port_to_pil
 
 _ROOT = Path(__file__).resolve().parent.parent
 _CKPT = str(_ROOT / cs.CKPT)
@@ -35,10 +37,18 @@ _SMALL = dict(seeds=(7401, 7402), ids=((1, 3), (2, 4, 5)), late=(3, 2), T=6,
 
 @pytest.fixture
 def jax_reads_with_pil(monkeypatch):
-    """The JAX readers decode through their C++ loader when it is built,
-    within +-1 of PIL; the port reads with PIL, so hold it to the JAX
-    readers' PIL path (the oracle of tests/test_native_loader.py)."""
+    """Both packages' readers decode through their C++ loaders when those
+    are built, within +-1 of PIL; hold both to the PIL path (the oracle of
+    tests/test_native_loader.py)."""
     monkeypatch.setattr(jax_native_loader, "_native", lambda: None)
+    pin_port_to_pil(monkeypatch)
+
+
+@pytest.fixture
+def both_read_natively(monkeypatch, tmp_path):
+    """Both packages' readers decode with their C++ loaders (the JAX one
+    built from native/loader into this test's directory)."""
+    pin_both_native(monkeypatch, jax_native_loader, tmp_path)
 
 
 def _tree(tmp_path, cache=True, **kw):
@@ -89,6 +99,14 @@ def test_ytvos_stream_bit_equal(tmp_path, with_meta, with_cache, jax_reads_with_
     got = batch_sequence_streams([port.sequence_stream(v) for v in port.videos])
     want = batch_sequence_streams([ref.sequence_stream(v) for v in ref.videos])
     _assert_streams_equal(got, want)
+
+
+@pytest.mark.parametrize("with_meta", [True, False])
+@pytest.mark.parametrize("with_cache", [True, False])
+def test_ytvos_stream_bit_equal_native(tmp_path, with_meta, with_cache,
+                                       both_read_natively):
+    """The same with both packages decoding natively."""
+    test_ytvos_stream_bit_equal(tmp_path, with_meta, with_cache, None)
 
 
 @pytest.mark.parametrize("full_size", [None, (97, 131), (21, 30)])
@@ -196,6 +214,11 @@ def test_ytvos_cli_matches_jax_cli(tmp_path, monkeypatch, jax_reads_with_pil):
     np.testing.assert_allclose(before["assignments"][:late, 0, 2].sum(-1), 1.0,
                                atol=1e-3)
     assert (before["labels"] != fixed["labels"]).mean() > 1e-3
+
+
+def test_ytvos_cli_matches_jax_cli_native(tmp_path, monkeypatch, both_read_natively):
+    """The same with both packages decoding natively."""
+    test_ytvos_cli_matches_jax_cli(tmp_path, monkeypatch, None)
 
 
 def test_per_frame_refuses_mid_video_objects(tmp_path, monkeypatch,

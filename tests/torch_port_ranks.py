@@ -141,14 +141,19 @@ def detector_grads(kwargs: dict, variables, batch: dict) -> dict:
             "grads": {n: g.numpy() for n, g in zip(names, opt.grads)}}
 
 
-def cli_runs(root: str, script: str, runs: list) -> list:
+def cli_runs(root: str, script: str, runs: list, pil: bool = False) -> list:
     """``main(argv)`` of a top-level CLI script (infer_torch, train_torch,
     train_proposal_torch) for each argv of ``runs`` in turn, inside this
     rank's group; results without their models, and each rank's parameter
-    checksum after each run where the CLI returns a model."""
+    checksum after each run where the CLI returns a model. ``pil``: the
+    port's readers decode with PIL in this rank (a parent's pin does not
+    reach a spawned rank)."""
     if root not in sys.path:
         sys.path.insert(0, root)
     torch.set_num_threads(2)
+    if pil:
+        from dmm_net_tpu_torch.data import native_loader
+        native_loader._TRIED, native_loader._LIB = True, None
     cli = importlib.import_module(script)
     outs = []
     for argv in runs:

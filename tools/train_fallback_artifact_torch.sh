@@ -1,0 +1,39 @@
+#!/bin/bash
+# Train the port's counterpart of the git-tracked fallback checkpoint on the
+# card, gate it and drill it:
+#
+#   runs/torch/dmm128_fallback.msgpack   R-18 at 128x224 DMM (planted
+#                                        proposals; {"config", "variables"}
+#                                        flax msgpack)
+#
+# It never writes artifacts/dmm128_fallback.msgpack, the JAX package's
+# tracked file that the drills and the checks against the JAX package use.
+# Knobs: FALLBACK_STEPS=2500, FALLBACK_MIN_JF=0.90 (the held-out J&F at save
+# time: the file is renamed from .unverified only at or above it).
+set -e
+cd "$(dirname "$0")/.."
+mkdir -p runs/torch
+
+python3 examples/train_and_eval_synthetic_torch.py --size 128 --width 224 \
+  --backbone resnet18 --feature-dim 32 --decoder-dim 32 --obj-dim 16 \
+  --steps "${FALLBACK_STEPS:-2500}" --eval-seqs 2 \
+  --min-jf "${FALLBACK_MIN_JF:-0.90}" \
+  --save runs/torch/dmm128_fallback.msgpack
+
+# The fallback drill on the new file (J&F > 0.85 on the native 854x480 tree).
+python3 - <<'PY'
+import pathlib
+import sys
+import tempfile
+
+sys.path.insert(0, "tests")
+import test_torch_port_dayone as drill
+
+with tempfile.TemporaryDirectory() as tmp:
+    drill.FALLBACK_CKPT = pathlib.Path("runs/torch/dmm128_fallback.msgpack")
+    summary = drill.fallback_drill(pathlib.Path(tmp))
+print(f"fallback drill on runs/torch/dmm128_fallback.msgpack: J&F "
+      f"{summary['J&F']:.4f}, dispatch {summary['dispatch']}")
+sys.exit(0 if summary["J&F"] > 0.85 and summary["dispatch"] == "chunked_scan"
+         else 1)
+PY

@@ -204,6 +204,9 @@ def main(argv=None):
             log.info("step %d: %s", i + 1,
                      {k: round(v, 4) for k, v in logged.items()})
     seconds = time.perf_counter() - t0
+    if args.steps > 1:
+        log.info("ms per step (after the first): %.2f",
+                 1e3 * (step_times[-1] - step_times[0]) / (args.steps - 1))
     result = {"history": history, "step_times": step_times, "seconds": seconds,
               "model": model}
     if lead and args.eval_images:
@@ -223,6 +226,10 @@ def main(argv=None):
         log.info("saved variables to %s", args.save)
     if mesh is not None:
         mesh.barrier()
+    from dmm_net_tpu_torch.kernels import _build
+    report = _build.cuda_report(model.device)
+    if lead and report:
+        print(report, flush=True)
     log.info("done")
     return result
 
