@@ -76,6 +76,19 @@ def _scratch(lib, device, B, M, N, Pc, D, pooling: bool) -> torch.Tensor:
     return torch.empty((n,), dtype=torch.float32, device=device)
 
 
+def pool_cost_match_ops(B: int, M: int, N: int, P: int, D: int, Pc: int,
+                        iters: int, pairs: int) -> int:
+    """Arithmetic operations of one B1 call: pooling (a product and the
+    mask areas), the mask intersections and areas on the cost grid, the
+    cosine term and the norms, and each Sinkhorn iteration's row and column
+    log-sum-exps over the ``pairs`` valid (template, proposal) entries.
+    The bound in chip_smoke.py and bench_torch.py's FLOP count use it."""
+    return (2 * B * N * P * D + B * N * P            # pooling + mask areas
+            + 2 * B * M * N * Pc + B * (M + N) * Pc  # intersections + areas
+            + 2 * B * M * N * D + 2 * B * (M + N) * D  # cosine + norms
+            + 10 * (iters + 1) * pairs)              # Sinkhorn row/col LSEs
+
+
 def pool_cost_match_plain(emb, prop_masks_pool, tmpl_masks_cost,
                           prop_masks_cost, tmpl_feats, row_mask, col_mask,
                           epsilon: float = 0.05, iters: int = 30,

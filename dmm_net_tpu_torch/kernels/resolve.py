@@ -161,6 +161,15 @@ def _bg_logit(bg_threshold: float) -> float:
     return float(math.log(bg_threshold / (1.0 - bg_threshold)))
 
 
+def resolve_upsample_ops(valid_slots: int, h: int, H: int, W: int) -> int:
+    """Arithmetic operations of one B2 call: the column pass (h x W outputs
+    of 3 operations) and the row pass (H x W outputs of 3) of each of the
+    ``valid_slots`` valid (batch element, object) slots, and the argmax's
+    compare per output pixel and slot; only valid slots can change a label.
+    The bound in chip_smoke.py and bench_torch.py's FLOP count use it."""
+    return 3 * valid_slots * h * W + 3 * valid_slots * H * W + valid_slots * H * W
+
+
 def resolve_upsample_plain(logits: torch.Tensor, tmpl_valid: torch.Tensor,
                            out_hw: Sequence[int],
                            bg_threshold: float = 0.5) -> torch.Tensor:

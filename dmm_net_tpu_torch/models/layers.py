@@ -137,17 +137,44 @@ class BatchNorm(nn.Module):
 
 
 def init_random(module: nn.Module, generator: torch.Generator) -> None:
-    """Seeded init: conv and dense kernels ~ N(0, 1/fan_in) (lecun normal),
-    biases 0; BatchNorm scales keep their constructor init (1, or 0 for the
-    last BN of a residual block), and so do the DCNv2 offset predictors
-    (``offset_conv``, 0: each deformable conv starts as a plain one)."""
+    """Seeded init with the reference's distributions: each conv and dense
+    kernel ~ flax's ``variance_scaling(scale, "fan_in", "truncated_normal")``,
+    a normal cut at 2 sigma and rescaled to variance scale / fan_in: scale 1
+    (``lecun_normal``, flax's default) or a module's ``init_scale`` (2 for
+    a DCNv2 main kernel, ``he_normal``). ``fan_in`` is flax's: input channels x kernel area
+    (``ConvTranspose`` keeps its inputs on axis 0). Biases 0; BatchNorm
+    scales keep their constructor init (1, or 0 for the last BN of a
+    residual block), and so do the DCNv2 offset predictors (``offset_conv``,
+    0: each deformable conv starts as a plain one)."""
     with torch.no_grad():
-        for name, p in module.named_parameters():
-            if ".offset_conv." in f".{name}":
+        for mod_name, mod in module.named_modules():
+            if "offset_conv" in mod_name.split("."):
                 continue
-            if name.endswith("bias"):
-                p.zero_()
-            elif p.dim() >= 2:
-                fan_in = p[0].numel()
-                p.copy_(torch.randn(p.shape, generator=generator)
-                        / math.sqrt(fan_in))
+            for name, p in mod.named_parameters(recurse=False):
+                if name == "bias":
+                    p.zero_()
+                elif p.dim() >= 2:
+                    fan_in = p[0].numel()
+                    if isinstance(mod, ConvTranspose):
+                        fan_in = p.shape[0] * p[0, 0].numel()
+                    scale = getattr(mod, "init_scale", 1.0)
+                    s = math.sqrt(scale / fan_in) / _TRUNC_STD
+                    p.copy_(_unit_normal_cut_at_2(p.shape, generator) * s)
+
+
+# Std of a unit normal cut at +-2 (flax's variance_scaling divides by it).
+_TRUNC_STD = 0.87962566103423978
+
+
+def _unit_normal_cut_at_2(shape, generator: torch.Generator) -> torch.Tensor:
+    """Float32 normal values cut at +-2 by rejection: every value outside is
+    drawn again from ``torch.randn`` until none is. Built on ``randn`` alone
+    because ``nn.init.trunc_normal_`` draws other numbers from the same
+    generator in other torch releases (inverse CDF in some, rejection in
+    others), and seeded weights must not depend on the release."""
+    x = torch.randn(shape, generator=generator)
+    out = x.abs() > 2.0
+    while out.any():
+        x[out] = torch.randn(int(out.sum()), generator=generator)
+        out = x.abs() > 2.0
+    return x

@@ -86,6 +86,8 @@ class DeformConv(nn.Module):
     contracts. At init it is exactly a plain convolution. ``weight`` is
     OIHW (flax's ``kernel`` is HWIO; the weight bridge transposes it)."""
 
+    init_scale = 2.0    # models.layers.init_random draws weight as he_normal
+
     def __init__(self, cin: int, cout: int, k: int = 3, stride: int = 1,
                  dilation: int = 1, modulated: bool = True,
                  dtype: torch.dtype = torch.float32):

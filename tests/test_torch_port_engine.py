@@ -174,6 +174,7 @@ def test_port_imports_no_jax():
             "'dmm_net_tpu_torch.'):\n"
             "    importlib.import_module(m.name)\n"
             "import infer_torch, train_torch, train_proposal_torch\n"
+            "import bench_torch, graft_entry_torch\n"
             "import importlib.util as u\n"
             "for f in ('tools/extract_proposals_torch.py',\n"
             "          'tools/import_torch_weights_torch.py',\n"
@@ -186,7 +187,9 @@ def test_port_imports_no_jax():
             "          'tools/ab_logits_res_torch.py',\n"
             "          'tools/ab_480p_torch.py',\n"
             "          'tools/ab_decoder_arch_torch.py',\n"
-            "          'tools/dayone_seeds_torch.py'):\n"
+            "          'tools/dayone_seeds_torch.py',\n"
+            "          *sorted(str(p) for p in __import__('pathlib').Path('bench')"
+            ".glob('*_torch.py'))):\n"
             "    s = u.spec_from_file_location('x', f)\n"
             "    s.loader.exec_module(u.module_from_spec(s))\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -212,6 +215,8 @@ def test_port_sources_never_name_jax():
     files = sorted(_PKG.rglob("*.py")) + [
         _ROOT / "chip_smoke.py", _ROOT / "infer_torch.py",
         _ROOT / "train_torch.py", _ROOT / "train_proposal_torch.py",
+        _ROOT / "bench_torch.py", _ROOT / "graft_entry_torch.py",
+        *sorted((_ROOT / "bench").glob("*_torch.py")),
         *sorted((_ROOT / "examples").glob("*_torch.py")),
         *sorted((_ROOT / "tools").glob("*_torch.py")),
         _ROOT / "tests" / "torch_port_ranks.py"]

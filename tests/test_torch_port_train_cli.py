@@ -182,3 +182,63 @@ def test_example_starts_from_jax_variables(tmp_path):
     want = convert_flax_variables(load_msgpack_ckpt(str(blob))[1])
     assert want.keys() <= got.keys()
     assert all(torch.equal(got[k].float(), w.float()) for k, w in want.items())
+
+
+def test_example_mrcnn_proposals_match_the_jax_closure(tmp_path):
+    """--mrcnn's proposals: the port's ``detect_batch`` and the JAX
+    example's jitted closure (examples/train_and_eval_synthetic.py, copied
+    below as it stands there) on one seeded detector file (R-18 at 64x128,
+    the example's 4 classes, score threshold 0.05, N=8) and one clip batch
+    of the example's kind (B=2, T=2): the same binary masks in the same
+    order and the same validity."""
+    import argparse
+
+    import jax
+    import jax.numpy as jnp
+    from flax import serialization
+
+    from dmm_net_tpu.data.synthetic import synthetic_clip_batch
+    from dmm_net_tpu.models.proposal.maskrcnn import MaskRCNN as JaxMaskRCNN
+    from dmm_net_tpu.models.proposal.maskrcnn import paste_masks
+    from dmm_net_tpu_torch.models.proposal import MaskRCNN
+    from dmm_net_tpu_torch.utils.checkpoint import msgpack_serialize
+    from dmm_net_tpu_torch.weights import to_flax_variables
+
+    S, SW, N, classes = 64, 128, 8, 4
+    path = tmp_path / "det.msgpack"
+    path.write_bytes(msgpack_serialize(to_flax_variables(MaskRCNN(
+        image_size=(S, SW), backbone_name="resnet18", num_classes=classes,
+        device="cpu", seed=11))))
+    frames = synthetic_clip_batch(seed=4, batch=2, T=2, H=S, W=SW, num_objects=2,
+                                  num_proposals=N, pad_objects=4)["frames"]
+
+    example = _example()
+    det = example.load_detector(argparse.Namespace(
+        mrcnn=str(path), mrcnn_backbone="resnet18", mrcnn_classes=classes),
+        (S, SW), N, "cpu")
+    got_pm, got_pv = example.detect_batch(det, torch.from_numpy(np.asarray(frames)))
+
+    jdet = JaxMaskRCNN(image_size=(S, SW), backbone_name="resnet18",
+                       num_classes=classes, score_thresh=0.05, max_detections=N)
+    det_vars = serialization.msgpack_restore(path.read_bytes())
+
+    @jax.jit
+    def detect_batch(frames):            # (B, T, H, W, 3) on device
+        def one(img):
+            out = jdet.apply(det_vars, img[None])
+            full = paste_masks(out["masks"], out["boxes"], out["valid"],
+                               (S, SW))
+            order = jnp.argsort(-jnp.where(out["valid"], out["scores"],
+                                           -jnp.inf))
+            return ((full[order] > 0.5).astype(jnp.float32),
+                    out["valid"][order])
+        B_, T_ = frames.shape[:2]
+        flat = frames.reshape((B_ * T_,) + frames.shape[2:])
+        pm, pv = jax.lax.map(one, flat)
+        return (pm.reshape((B_, T_) + pm.shape[1:]),
+                pv.reshape(B_, T_, -1))
+
+    want_pm, want_pv = (np.asarray(x) for x in detect_batch(jnp.asarray(frames)))
+    assert want_pv.sum() > 4 and want_pm.any()      # detections, not all padding
+    np.testing.assert_array_equal(got_pv.numpy(), want_pv)
+    np.testing.assert_array_equal(got_pm.numpy(), want_pm)
