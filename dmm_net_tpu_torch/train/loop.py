@@ -9,9 +9,9 @@ and its backward (B1') runs through autograd (kernels/matcher.py).
 
 The optimizer is optax's ``chain(clip_by_global_norm(1.0), adamw(warmup
 cosine schedule, weight_decay))``, wrapped in ``MultiSteps`` when
-``train.grad_accum > 1``: ``torch.optim.AdamW`` under a ``LambdaLR``, with
-optax's clip (no epsilon, unlike ``clip_grad_norm_``) and the gradient
-mean written out.
+``train.grad_accum > 1``: optax's adamw in its own float32 order
+(train/adamw.py) under a ``LambdaLR``, with optax's clip (no epsilon,
+unlike ``clip_grad_norm_``) and the gradient mean written out.
 
 On a data-parallel mesh (parallel/mesh.py) every rank holds the parameters,
 replicated from rank 0, and its own rows of the global batch. The loss is
@@ -25,7 +25,6 @@ as the JAX package's mesh step does. DistributedDataParallel is not used:
 
 from __future__ import annotations
 
-import math
 import time
 from dataclasses import dataclass
 from typing import Dict, Iterable, List, Optional
@@ -40,6 +39,7 @@ from dmm_net_tpu_torch.models.dmm import DMMNet, FrameState
 from dmm_net_tpu_torch.models.layers import BatchNorm
 from dmm_net_tpu_torch.ops.resize import resize
 from dmm_net_tpu_torch.parallel.mesh import Mesh, all_reduce_sum_, replicate_
+from dmm_net_tpu_torch.train.adamw import AdamW
 from dmm_net_tpu_torch.train.losses import clip_loss
 from dmm_net_tpu_torch.weights import load_flax_variables
 
@@ -66,28 +66,16 @@ def global_norm(tensors: List[torch.Tensor]) -> torch.Tensor:
 
 class Optimizer:
     """optax ``chain(clip_by_global_norm(1.0), adamw(schedule, wd))`` over
-    ``params``: ``torch.optim.AdamW`` (b1 0.9, b2 0.999, eps 1e-8, decay on
-    every parameter, decoupled and scaled by the lr, as optax's) with a
-    ``LambdaLR`` giving ``warmup_cosine_lr`` at the count of updates
-    applied (so the first update has lr 0 under a warmup; times
-    ``_bias_ratio``), after optax's
-    global-norm clip: ``g / |g|`` when ``|g| >= 1``, with no epsilon (unlike
+    ``params``: optax's adamw (train/adamw.py: b1 0.9, b2 0.999, eps 1e-8,
+    decay on every parameter) with a ``LambdaLR`` giving
+    ``warmup_cosine_lr`` at the count of updates applied (so the first
+    update has lr 0 under a warmup), after optax's global-norm clip:
+    ``g / |g|`` when ``|g| >= 1``, with no epsilon (unlike
     ``clip_grad_norm_``). ``train.grad_accum = k > 1`` makes it
     ``MultiSteps``: the running mean of k gradients, then one clip and one
     update (the calls in between change nothing)."""
 
     b1, b2, max_norm = 0.9, 0.999, 1.0
-
-    @classmethod
-    def _bias_ratio(cls, t: int) -> float:
-        """optax's Adam step factor sqrt(1 - b2^t) / (1 - b1^t), with b^t
-        in float32 as optax evaluates it, over torch's in float64: folded
-        into the lr, it makes the two agree to float32 rounding (at t=1 the
-        factors differ by 2.3e-5)."""
-        f32 = np.float32
-        optax_f = (np.sqrt(f32(1) - f32(cls.b2) ** f32(t))
-                   / (f32(1) - f32(cls.b1) ** f32(t)))
-        return float(optax_f) / (math.sqrt(1 - cls.b2 ** t) / (1 - cls.b1 ** t))
 
     def __init__(self, params: Iterable[torch.nn.Parameter], cfg: Config):
         self.params = list(params)
@@ -95,12 +83,10 @@ class Optimizer:
         self.mini_step = 0
         self.acc = ([torch.zeros_like(p) for p in self.params] if self.k > 1
                     else None)
-        self.adamw = torch.optim.AdamW(self.params, lr=1.0,
-                                       betas=(self.b1, self.b2), eps=1e-8,
-                                       weight_decay=cfg.train.weight_decay)
+        self.adamw = AdamW(self.params, lr=1.0, betas=(self.b1, self.b2),
+                           eps=1e-8, weight_decay=cfg.train.weight_decay)
         self.schedule = torch.optim.lr_scheduler.LambdaLR(
-            self.adamw, lambda count: (warmup_cosine_lr(cfg, count)
-                                       * self._bias_ratio(count + 1)))
+            self.adamw, lambda count: warmup_cosine_lr(cfg, count))
 
     @property
     def count(self) -> int:

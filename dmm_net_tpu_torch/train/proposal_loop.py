@@ -9,9 +9,9 @@ batch, so here the backbone and the FPN run once on the whole batch, and
 the proposal selection, ROI-Align (B4 forward, B4' backward) and the heads
 run per image (``MaskRCNN.train_forward_batch``).
 
-The optimizer is optax's ``adamw(lr, weight_decay=1e-5)``: torch's
-``AdamW`` with the same betas, eps and decay over every parameter, BN
-scales and biases included (they are flax ``params``).
+The optimizer is optax's ``adamw(lr, weight_decay=1e-5)`` in its own
+float32 order (train/adamw.py), over every parameter, BN scales and biases
+included (they are flax ``params``).
 
 A batch is the JAX package's dict, numpy or tensors: images (B, H, W, 3)
 float in [0, 1], boxes (B, G, 4), labels (B, G), valid (B, G) bool and
@@ -37,6 +37,7 @@ from dmm_net_tpu_torch.models.proposal.losses import (assign_proposals,
                                                       rpn_loss)
 from dmm_net_tpu_torch.models.proposal.maskrcnn import MaskRCNN
 from dmm_net_tpu_torch.parallel.mesh import Mesh, all_reduce_sum_
+from dmm_net_tpu_torch.train.adamw import AdamW
 
 _PARTS = ("rpn_cls", "rpn_reg", "box_cls", "box_reg", "mask")
 
@@ -105,10 +106,10 @@ def make_proposal_batch_loss(model: MaskRCNN, mesh: Optional[Mesh] = None):
     return batch_loss
 
 
-def make_proposal_optimizer(model: MaskRCNN, lr: float) -> torch.optim.AdamW:
+def make_proposal_optimizer(model: MaskRCNN, lr: float) -> AdamW:
     """optax.adamw(lr, weight_decay=1e-5) over every parameter."""
-    return torch.optim.AdamW(model.parameters(), lr=lr, betas=(0.9, 0.999),
-                             eps=1e-8, weight_decay=1e-5)
+    return AdamW(model.parameters(), lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                 weight_decay=1e-5)
 
 
 def make_proposal_train_step(model: MaskRCNN, optimizer: torch.optim.Optimizer,

@@ -113,9 +113,66 @@ def test_dayone_seeds_tool(capsys, det):
     assert json.loads(lines[-1]) == {"dayone_seeds": summary}
     assert json.loads(lines[-2]) == rows[0] and rows[0]["seed"] == 7001
     assert set(summary) == {"detector", "detector_model_res", "planted",
-                            "detector_kernels"}
+                            "detector_kernels", "proposals"}
     assert rows[0]["planted"]["J&F"] > 0.85
     assert len(rows[0]["detections_per_frame"]) == 2
+    props = rows[0]["proposals"]
+    assert set(props) == {"recall@0.5", "recall@0.7", "best_iou", "best_iou_mean"}
+    assert len(props["best_iou"]) == 2                   # the tree's two objects
+    assert 0.0 <= props["recall@0.7"] <= props["recall@0.5"] <= 1.0
+    assert set(summary["proposals"]) == {"recall@0.5", "recall@0.7", "best_iou_mean"}
+
+
+def test_dayone_seeds_tool_planted_alone(capsys):
+    """--mrcnn none: no detector, the planted arm alone, at the DMM file's
+    own geometry (the fallback checkpoint's 128x224)."""
+    capsys.readouterr()
+    rows, summary = cs.load_tool("dayone_seeds_torch").main(
+        ["--dmm", _CKPT, "--mrcnn", "none", "--seeds", "7001", "--frames", "2",
+         "--device", "cpu"])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert json.loads(lines[-1]) == {"dayone_seeds": summary}
+    assert set(rows[0]) == {"seed", "planted"} and set(summary) == {"planted"}
+    assert rows[0]["planted"]["J&F"] > 0.85
+    assert summary["planted"]["mean"] == rows[0]["planted"]["J&F"]
+
+
+def test_dayone_seeds_proposal_quality(tmp_path):
+    """The tool's recall and best IoU from a hand-made cache: on frame 0 the
+    ground truth of both objects, on frame 1 object 1's mask and a copy of
+    object 2's with a band cleared (IoU known), against each object's IoU
+    computed here."""
+    import numpy as np
+
+    from dmm_net_tpu_torch.data.synthetic import write_native_davis_tree
+    from dmm_net_tpu_torch.ops import rle as rle_codec
+
+    tool = cs.load_tool("dayone_seeds_torch")
+    root = write_native_davis_tree(str(tmp_path / "D"), T=2, seeds=(7001,))
+    from dmm_net_tpu_torch.data.davis import DavisDataset
+    ds = DavisDataset(root, image_size=tool.CACHE_HW)
+    gts = [ds.load_annotation(p) for p in ds.annotation_paths("seq0")]
+    o2 = gts[1] == 2
+    ys = np.flatnonzero(o2.any(1))
+    cut = o2.copy()
+    cut[ys[: len(ys) * 2 // 5]] = False                  # 40% of its rows gone
+    iou2 = cut.sum() / o2.sum()
+    assert 0.5 < iou2 < 0.7
+    frames = [[gts[0] == 1, gts[0] == 2], [gts[1] == 1, cut]]
+    (tmp_path / "P" / "seq0").mkdir(parents=True)
+    for t, masks in enumerate(frames):
+        props = []
+        for i, m in enumerate(masks):
+            rle = rle_codec.encode(m)
+            props.append({"bbox": [0, 0, 1, 1], "score": 1.0 - 0.1 * i,
+                          "rle": {"size": [int(v) for v in rle["size"]],
+                                  "counts": rle["counts"].decode("latin1")}})
+        (tmp_path / "P" / "seq0" / f"{t:05d}.json").write_text(json.dumps(props))
+    q = tool.proposal_quality(root, str(tmp_path / "P"))
+    assert q["recall@0.5"] == 1.0
+    assert q["recall@0.7"] == 0.75                       # frames: 1.0, 0.5
+    np.testing.assert_allclose(q["best_iou"], [1.0, (1.0 + iou2) / 2], rtol=1e-12)
+    assert q["best_iou_mean"] == np.mean(q["best_iou"])
 
 
 def test_ab_decoder_arch_tool(capsys):

@@ -10,6 +10,19 @@
 # tracked file that the drills and the checks against the JAX package use.
 # Knobs: FALLBACK_STEPS=2500, FALLBACK_MIN_JF=0.90 (the held-out J&F at save
 # time: the file is renamed from .unverified only at or above it).
+#
+# It trains the config's current decoder defaults (decoder_obj_fuse conv1,
+# decoder_obj_fine_level c3, decoder_detail_basis_k 1), not the tracked
+# file's architecture: that file was trained before those defaults moved
+# and its config says conv3 with the stride-4 per-object path, which
+# config_from_dict restores through _LEGACY_DEFAULTS ("" and 3). Its recipe
+# is this script's example command with
+#
+#   --set model.decoder_obj_fuse=conv3 model.decoder_obj_fine_level= \
+#         model.decoder_detail_basis_k=3
+#
+# (decoder_obj_merge_fine_k 3 and decoder_detail_dim 16 are the defaults
+# already). PERF.md §6 holds three such trainings beside the file.
 set -e
 cd "$(dirname "$0")/.."
 mkdir -p runs/torch
