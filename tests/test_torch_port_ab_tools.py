@@ -123,6 +123,30 @@ def test_dayone_seeds_tool(capsys, det):
     assert set(summary["proposals"]) == {"recall@0.5", "recall@0.7", "best_iou_mean"}
 
 
+def test_dayone_seeds_tool_reads_caches(tmp_path, capsys, det):
+    """--caches DIR: each seed's cache from DIR/<seed> in place of the
+    detector. Given the caches the tool's own detector run writes, the rows
+    and the summary are that run's, and the detector file is not read."""
+    from dmm_net_tpu_torch.data.synthetic import write_native_davis_tree
+
+    tool = cs.load_tool("dayone_seeds_torch")
+    root = write_native_davis_tree(str(tmp_path / "D"), T=2, seeds=(7001,))
+    cs.load_tool("extract_proposals_torch").main(
+        tool.extract_argv(root, str(tmp_path / "C" / "7001"), str(det), "cpu"))
+    args = ["--dmm", _CKPT, "--seeds", "7001", "--frames", "2", "--device", "cpu"]
+    by_detector = tool.main(args + ["--mrcnn", str(det)])
+    capsys.readouterr()
+    by_cache = tool.main(args + ["--caches", str(tmp_path / "C"), "--mrcnn",
+                                 str(tmp_path / "absent.msgpack")])
+    lines = capsys.readouterr().out.strip().splitlines()
+    assert by_cache == by_detector
+    assert json.loads(lines[-1]) == {"dayone_seeds": by_cache[1]}
+    assert set(by_cache[1]) == {"detector", "detector_model_res", "planted",
+                                "detector_kernels", "proposals"}
+    with pytest.raises(FileNotFoundError, match="no cache for seed 7002"):
+        tool.main(args + ["--seeds", "7002", "--caches", str(tmp_path / "C")])
+
+
 def test_dayone_seeds_tool_planted_alone(capsys):
     """--mrcnn none: no detector, the planted arm alone, at the DMM file's
     own geometry (the fallback checkpoint's 128x224)."""

@@ -188,6 +188,7 @@ def test_port_imports_no_jax():
             "          'tools/ab_480p_torch.py',\n"
             "          'tools/ab_decoder_arch_torch.py',\n"
             "          'tools/dayone_seeds_torch.py',\n"
+            "          'tools/compare_caches_torch.py',\n"
             "          *sorted(str(p) for p in __import__('pathlib').Path('bench')"
             ".glob('*_torch.py'))):\n"
             "    s = u.spec_from_file_location('x', f)\n"

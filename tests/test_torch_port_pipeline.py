@@ -284,7 +284,9 @@ def native_caches(tmp_path_factory, jax_detector):
 def test_cache_tool_matches_jax_detector(caches, dataset, jax_reads_with_pil):
     """Each frame's JSON against the JAX detector + paste + RLE on the same
     frame: the same detections, boxes within 1e-3, scores within 1e-5,
-    decoded masks differing in < 1e-3 of the pixels."""
+    decoded masks differing in < 1e-3 of the pixels (the tolerances of
+    tools/compare_caches_torch.py, which holds two caches to them)."""
+    tol = cs.load_tool("compare_caches_torch")
     detect, trees = caches
     root, cache, norm = trees[dataset]
     ds = (JaxDavis(str(root), image_size=(64, 64)) if dataset == "davis"
@@ -300,13 +302,13 @@ def test_cache_tool_matches_jax_detector(caches, dataset, jax_reads_with_pil):
             keep = np.flatnonzero(valid)
             assert len(props) == len(keep)
             for p, i in zip(props, keep):
-                np.testing.assert_allclose(p["bbox"], boxes[i], atol=1e-3, rtol=0)
-                assert abs(p["score"] - scores[i]) <= 1e-5
+                np.testing.assert_allclose(p["bbox"], boxes[i], atol=tol.BOX_TOL, rtol=0)
+                assert abs(p["score"] - scores[i]) <= tol.SCORE_TOL
                 assert p["rle"]["size"] == [64, 64]
                 mism.append((rle.decode(p["rle"]) != (masks[i] > 0.5)).mean())
             n_det += len(keep)
     assert n_det >= 4                                   # detections to compare
-    assert np.mean(mism) < 1e-3
+    assert np.mean(mism) < tol.MASK_TOL
 
 
 def _jax_written(props):

@@ -23,10 +23,15 @@ system's recall, examples/full_system_synthetic_torch.py), and
 DMM file of any geometry (infer_torch.py reads it from the file's config),
 such as a fallback checkpoint.
 
+``--caches DIR`` takes each seed's cache from ``DIR/<seed>`` (a DAVIS cache
+of that seed's tree, ``seq0/<t>.json``) in place of running a detector, and
+scores the same arms and columns: for instance the JAX-trained detector's
+caches in ``artifacts/drill_proposals_jax/``.
+
 Usage: python tools/dayone_seeds_torch.py [--seeds 7001 ... 7008]
            [--frames 4] [--dmm runs/torch/dmm448/dmm.msgpack]
            [--mrcnn runs/torch/proposal_video448/mrcnn.msgpack | none]
-           [--device cpu]
+           [--caches DIR] [--device cpu]
 Prints one JSON line per seed, then one JSON line of each arm's mean and
 minimum J&F (and of the proposals' recall and best IoU).
 """
@@ -79,6 +84,15 @@ def proposal_quality(root, cache, max_proposals=8):
     return out
 
 
+def extract_argv(root, cache, mrcnn, device):
+    """tools/extract_proposals_torch.py's arguments for the drill's cache of
+    ``root`` with the detector file ``mrcnn`` (the drill's flags)."""
+    return ["--dataset", "davis", "--root", root, "--out", cache, "--params",
+            mrcnn, "--image-size", *map(str, CACHE_HW), "--backbone", "resnet18",
+            "--num-classes", "4", "--max-detections", "8", "--score-thresh",
+            "0.05", "--device", device]
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--seeds", type=int, nargs="*", default=list(range(7001, 7009)))
@@ -87,6 +101,9 @@ def main(argv=None):
     ap.add_argument("--mrcnn", default="runs/torch/proposal_video448/mrcnn.msgpack",
                     help="the detector file, or 'none' for the planted arm "
                     "alone")
+    ap.add_argument("--caches", default=None,
+                    help="score the caches DIR/<seed> in place of running "
+                    "the detector (--mrcnn is then not read)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
@@ -101,7 +118,7 @@ def main(argv=None):
     extract = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(extract)
 
-    detector = args.mrcnn != "none"
+    detector = args.caches is not None or args.mrcnn != "none"
     rows = []
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
@@ -110,13 +127,14 @@ def main(argv=None):
                                            seeds=(seed,))
             row = {"seed": seed}
             arms = {"planted": []}
-            if detector:
+            if args.caches is not None:
+                cache = os.path.join(args.caches, str(seed))
+                if not os.path.isdir(cache):
+                    raise FileNotFoundError(f"no cache for seed {seed}: {cache}")
+            elif detector:
                 cache = str(tmp / f"P{seed}")
-                extract.main(["--dataset", "davis", "--root", root, "--out", cache,
-                              "--params", args.mrcnn, "--image-size",
-                              *map(str, CACHE_HW), "--backbone", "resnet18",
-                              "--num-classes", "4", "--max-detections", "8",
-                              "--score-thresh", "0.05", "--device", args.device])
+                extract.main(extract_argv(root, cache, args.mrcnn, args.device))
+            if detector:
                 arms = {"detector": ["--proposal-dir", cache],
                         "detector_model_res": ["--proposal-dir", cache,
                                                "--score-at-model-res"],
