@@ -60,16 +60,18 @@ Phases, each fatal on failure:
      eval/ytvos_local: G within 0.01 of the JAX package's (`JAX_YTVOS_G`,
      recomputed by tests/test_torch_port_ytvos.py), and one video on the
      card against the CPU;
-  7. training: (7a) B1' (the fused matcher's autograd.Function: the kernel
-     forward, autograd through the plain version backward) at p5_train's
-     shapes and epsilon 0.03, X and all five gradients against autograd
-     through the plain version on the card, with the device ms of the
-     forward and the backward; (7b) train_torch.py --preset p5_train --set
+  7. training: (7a) B1' (the fused matcher's autograd.Function: B1's
+     kernel forward, B1''s kernel backward and four products) at p5_train's
+     shapes and epsilon 0.03 and at p3's and p4's M, N at 0.05, X and all
+     five gradients against autograd through the plain version and the
+     explicit plain backward on the card, two backwards bit-equal, one
+     launch per backward, with the device ms of the backward, the old
+     route's (autograd through the plain version) and the bound; (7b) train_torch.py --preset p5_train --set
      matching.use_pallas=true at full width (R-50 256x448 bf16 backbone,
      M=8, N=64, B=4 clips of T=4, seeded random weights) on a DAVIS-layout
      tree written to a temporary directory, 6 steps with the counters set
-     to 0 just before and read just after (B1 launches and B1' backward
-     calls exactly steps x T),
+     to 0 just before and read just after (B1 and B1' launches and B1'
+     backward calls exactly steps x T),
      loss and grad_norm finite, ms per step, one profiled step, peak
      memory, 2 steps with remat (lower peak, the same step-1 loss), and the
      checkpoint served by infer_torch.py --ckpt on the tree's val split;
@@ -84,13 +86,14 @@ Phases, each fatal on failure:
      versions only) with the same weights and inputs, and compare; the
      same for a small detector (R-18, 64x128, 8 classes);
   9. the detector's training, scoring, the full system and DCNv2: (9a) B4'
-     (multilevel_roi_align's autograd.Function: the kernel forward,
-     autograd through the plain version backward) on a 256x448 R-50-FPN
-     pyramid at K=32 and K=128, both heads, forward and the four level
-     gradients against autograd through the plain version, device ms per
-     backward; (9b) train_proposal_torch.py at full width (R-50-FPN, 81
-     classes, 256x448, batch 2, 8 steps, seeded random weights) with B4 2 x
-     batch launches and B4' 2 x batch backward calls per step, every loss
+     (multilevel_roi_align's autograd.Function: B4's kernel forward, B4''s
+     kernel backward) on a 256x448 R-50-FPN pyramid at K=32 and K=128, both
+     heads, forward and the four level gradients against autograd through
+     the plain version and the explicit plain backward, two backwards
+     bit-equal, one launch per backward, device ms per backward beside the
+     old route's; (9b) train_proposal_torch.py at full width (R-50-FPN, 81
+     classes, 256x448, batch 2, 8 steps, seeded random weights) with B4 and
+     B4' 2 x batch launches and B4' 2 x batch backward calls per step, every loss
      part finite, ms per step, peak memory, one profiled step, and the saved
      file served by tools/extract_proposals_torch.py --params; (9c) the
      small detector's 3 train steps against the JAX package's
@@ -162,10 +165,10 @@ PIL is required (phases 5d, 6, 7, 9 and 11 read and write image trees;
 phase 6c reads with PIL, as the JAX package's reference was computed). Prints
 one JSON line {"kernels": [...]} with each kernel's launches (on the p3
 stream and the detector; ``launches_by_path`` for every path that runs it),
-error, time, plain-version time and bound (B1's entry carries B1' and B4's
-carries B4', their backwards, under ``backward``: autograd through the plain
-version, counted in calls since they have no kernel of their own), then the
-nvidia-smi line, then {"ok": true, "device": {...}} as the last line.
+error, time, plain-version time and bound (the backward kernels B1' and
+B4' have entries of their own, launched by the training paths; their
+"plain" column is the old route, autograd through the plain version), then
+the nvidia-smi line, then {"ok": true, "device": {...}} as the last line.
 Imports nothing of JAX.
 """
 
@@ -818,7 +821,8 @@ def check_assignments(what, X, valid, pvalid, row_tol, one_hot=False):
 
 
 def expect_launches(what, counts, want):
-    """The launch counts of B1 and B2 in a run must be exactly ``want``."""
+    """The launch counts of the kernels named in ``want`` in a run must be
+    exactly ``want``."""
     got = {k: counts[k] for k in want}
     if got != want:
         fail(f"{what}: launches {got}, expected {want}")
@@ -1596,86 +1600,143 @@ def write_davis_tree(root, train_seeds, val_seeds, T, hw):
     return root
 
 
-def b1_backward_check():
-    """Phase 7a: B1' at p5_train's shapes (B=4, M=8, N=64, P=16x28, D=256,
-    Pc=64x64) at epsilon 0.03 (the smallest the training configurations
-    use): X and all five gradients of the autograd.Function (kernel
-    forward, backward through the plain version) against autograd through
-    the plain version on the card; device ms of the forward and the
-    backward."""
+def span_device_ms(prep, step, n, what):
+    """Device ms per call of the kernels that start inside ``step(prep())``
+    (torch.profiler; ``prep`` runs outside the measured range, each call
+    ends in a synchronize), in total and by kernel name; fatal when a range
+    recorded no device time."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    step(prep())
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            a = prep()
+            torch.cuda.synchronize()
+            with torch.profiler.record_function("measured_span"):
+                step(a)
+                torch.cuda.synchronize()
+    spans = [e.time_range for e in prof.events()
+             if e.name == "measured_span" and e.device_type != DeviceType.CUDA]
+    if len(spans) != n:
+        fail(f"{what} timing: {len(spans)} ranges recorded, not {n}")
+    per = {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA or e.name == "measured_span" or \
+                getattr(e, "is_user_annotation", False):
+            continue
+        if any(sp.start <= e.time_range.start <= sp.end for sp in spans):
+            per[e.name] = per.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / n
+    if sum(per.values()) <= 0:
+        fail(f"{what} timing: no device time recorded")
+    return sum(per.values()), per
+
+
+B1_BWD_CASES = (("p5", (4, 8, 64, 448, 256, 4096), 0.03),
+                ("p3", (4, 16, 128, 448, 256, 4096), 0.05),
+                ("p4", (4, 32, 256, 448, 256, 4096), 0.05))
+
+
+def b1_backward_check():
+    """Phase 7a: B1' (_PoolCostMatch.backward: one fused_pool_cost_match_
+    backward launch, then the four products as torch.bmm / baddbmm) at
+    p5_train's shapes (B=4, M=8, N=64, P=16x28, D=256, Pc=64x64) at epsilon
+    0.03 (the smallest the training configurations use), and at p3's and
+    p4's M, N at 0.05: X and all five gradients against autograd through
+    the plain version (X within 2e-4, each gradient within 1e-3 of its
+    largest entry) and against the explicit plain backward; two backwards
+    bit-equal; one launch and one backward call per backward. Device ms per
+    backward (the kernel and the products), its bound, the old route's
+    (autograd through the plain version: its forward again and its VJP, as
+    B1' ran before it had a kernel) and the explicit plain backward's."""
+    import torch
+    from dmm_net_tpu_torch.kernels import (backward_calls, launch_counts,
+                                           reset_launch_counts)
     from dmm_net_tpu_torch.kernels.matcher import (fused_pool_cost_match,
+                                                   pool_cost_match_backward_plain,
                                                    pool_cost_match_plain)
-    shape, eps, iters = (4, 8, 64, 448, 256, 4096), 0.03, 30
-    gen = torch.Generator(device="cuda").manual_seed(21)
-    args = matcher_inputs(gen, *shape)
-    gX = torch.randn(shape[0], shape[1], shape[2], device="cuda", generator=gen)
     names = ("emb", "prop_masks_pool", "tmpl_masks_cost", "prop_masks_cost",
              "tmpl_feats")
+    iters, out, t0 = 30, {}, time.perf_counter()
+    for case, shape, eps in B1_BWD_CASES:
+        gen = torch.Generator(device="cuda").manual_seed(21)
+        args = matcher_inputs(gen, *shape)
+        gX = torch.randn(shape[0], shape[1], shape[2], device="cuda", generator=gen)
+        kw = dict(epsilon=eps, iters=iters)
 
-    def run(fn):
-        xs = [a.clone().requires_grad_(True) for a in args[:5]]
-        X = fn(*xs, *args[5:], epsilon=eps, iters=iters)
-        return X, torch.autograd.grad(X, xs, gX)
+        def leaves():
+            return [a.clone().requires_grad_(True) for a in args[:5]]
 
-    (Xk, gk), (Xp, gp) = run(fused_pool_cost_match), run(pool_cost_match_plain)
-    torch.cuda.synchronize()
-    x_err = (Xk - Xp).abs().max().item()
-    g_err = {n: ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
-             for n, a, b in zip(names, gk, gp)}
-    log(f"B1' (backward) p5 B,M,N,P,D,Pc={shape} epsilon={eps}: max|dX| "
-        f"{x_err:.3e} (limit 2e-4); max|dgrad| / max|grad| per input "
-        + ", ".join(f"{n} {e:.3e}" for n, e in g_err.items()) + " (limit 1e-3)")
-    if x_err > 2e-4 or max(g_err.values()) > 1e-3 or not all(
-            torch.isfinite(g).all() for g in gk):
-        fail("B1' gradients disagree with autograd through the plain version")
+        def run(fn):
+            xs = leaves()
+            X = fn(*xs, *args[5:], **kw)
+            return X.detach(), torch.autograd.grad(X, xs, gX)
 
-    def timed(fn, n=20):
-        """Device ms per call of the forward's and the backward's kernels."""
-        run(fn)
-        leaves = [[a.clone().requires_grad_(True) for a in args[:5]]
-                  for _ in range(n)]
+        reset_launch_counts()
+        Xk, gk = run(fused_pool_cost_match)
+        launches = launch_counts()["fused_pool_cost_match_backward"]
+        calls = backward_calls()["fused_pool_cost_match"]
+        _, gk2 = run(fused_pool_cost_match)
+        Xp, gp = run(pool_cost_match_plain)
+        ge = pool_cost_match_backward_plain(*args, gX, **kw)
         torch.cuda.synchronize()
-        fwd_kernels, bwd = 0.0, 0.0
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for xs in leaves:
-                X = fn(*xs, *args[5:], epsilon=eps, iters=iters)
-                torch.cuda.synchronize()
-                with torch.profiler.record_function("b1_backward"):
-                    torch.autograd.grad(X, xs, gX)
-                    torch.cuda.synchronize()
-        from torch.autograd import DeviceType
-        spans = [e.time_range for e in prof.events()
-                 if e.name == "b1_backward" and e.device_type != DeviceType.CUDA]
-        if len(spans) != n:
-            fail(f"B1' timing: {len(spans)} backward spans recorded, not {n}")
-        for e in prof.events():
-            if e.device_type != DeviceType.CUDA or e.name == "b1_backward" or \
-                    getattr(e, "is_user_annotation", False):
-                continue
-            us = e.time_range.elapsed_us()
-            if any(sp.start <= e.time_range.start <= sp.end for sp in spans):
-                bwd += us
-            elif "Memcpy" not in e.name and "Memset" not in e.name:
-                fwd_kernels += us
-        return fwd_kernels / 1e3 / n, bwd / 1e3 / n
+        bit_equal = all(torch.equal(a, b) for a, b in zip(gk, gk2))
+        x_err = (Xk - Xp).abs().max().item()
+        g_abs = {n: (a - b).abs().max().item() for n, a, b in zip(names, gk, gp)}
+        g_err = {n: g_abs[n] / max(b.abs().max().item(), 1e-30)
+                 for n, b in zip(names, gp)}
+        e_err = {n: ((a - b).abs().max() / b.abs().max().clamp_min(1e-30)).item()
+                 for n, a, b in zip(names, gk, ge)}
+        log(f"B1' {case} B,M,N,P,D,Pc={shape} epsilon={eps}: max|dX| {x_err:.3e} "
+            f"(limit 2e-4); max|dgrad| / max|grad| against autograd through "
+            f"the plain version "
+            + ", ".join(f"{n} {e:.3e}" for n, e in g_err.items())
+            + ", against the explicit plain backward "
+            + ", ".join(f"{n} {e:.3e}" for n, e in e_err.items())
+            + f" (limit 1e-3); two backwards bit-equal {bit_equal}; "
+            f"{launches} launch, {calls} backward call")
+        if x_err > 2e-4 or max(g_err.values()) > 1e-3 or max(e_err.values()) > 1e-3 \
+                or not bit_equal or launches != 1 or calls != 1 \
+                or not all(torch.isfinite(g).all() for g in gk):
+            fail(f"B1' at {case}: gradients disagree with the plain versions, "
+                 f"differ between two runs, or launches {launches} / calls {calls}")
 
-    k_fwd, k_bwd = timed(fused_pool_cost_match)
-    p_fwd, p_bwd = timed(pool_cost_match_plain)
-    # bound: the saved inputs and gX read once, the five gradients written;
-    # operations: the recomputed forward and its backward (~2x the forward)
-    _, ops = matcher_bound(args, iters)
-    byts = nbytes(*args, gX) + nbytes(*args[:5])
-    b_ms, b_by = bound_ms(byts, 3 * ops)
-    log(f"B1' time: forward (kernel) {k_fwd:.4f} ms on the device, backward "
-        f"{k_bwd:.4f} ms (the plain recompute and its VJP); plain forward "
-        f"{p_fwd:.4f} ms, plain backward alone {p_bwd:.4f} ms; bound "
-        f"{b_ms:.4f} ms ({b_by}: {byts / 1e6:.2f} MB, {3 * ops / 1e9:.3f} GFLOP)")
-    return {"max_abs_err": x_err, "grad_rel_err": g_err, "ms": k_bwd,
-            "forward_ms": k_fwd, "plain_ms": p_bwd, "plain_forward_ms": p_fwd,
-            "bound_ms": b_ms, "bound_by": b_by}
+        def fused_forward():
+            xs = leaves()
+            return fused_pool_cost_match(*xs, *args[5:], **kw), xs
+
+        ms, per = span_device_ms(fused_forward,
+                                 lambda a: torch.autograd.grad(a[0], a[1], gX),
+                                 20, f"B1' {case}")
+        plain, _ = span_device_ms(
+            leaves, lambda xs: torch.autograd.grad(
+                pool_cost_match_plain(*xs, *args[5:], **kw), xs, gX), 5,
+            f"B1' old route {case}")
+        explicit, _ = span_device_ms(
+            lambda: None, lambda _: pool_cost_match_backward_plain(*args, gX, **kw),
+            5, f"B1' explicit plain {case}")
+        kern = sum(v for k, v in per.items() if "matcher_backward_kernel" in k)
+        # bound: the saved inputs and gX read once, the five gradients
+        # written; operations: twice B1's (the reverse sweep and the four
+        # products; the forward is not rerun)
+        _, ops = matcher_bound(args, iters)
+        byts = nbytes(*args, gX) + nbytes(*args[:5])
+        b_ms, b_by = bound_ms(byts, 2 * ops)
+        log(f"B1' {case} time: backward {ms:.4f} ms on the device (kernel "
+            f"{kern:.4f}, the four products {ms - kern:.4f}: "
+            + ", ".join(f"{k[:40]} {v:.4f}" for k, v in per.items())
+            + f"); old route (the plain forward again and its VJP) {plain:.4f} "
+            f"ms; explicit plain backward {explicit:.4f} ms; bound {b_ms:.4f} ms "
+            f"({b_by}: {byts / 1e6:.2f} MB, {2 * ops / 1e9:.3f} GFLOP)")
+        out[case] = {"max_abs_err": max(g_abs.values()), "x_err": x_err,
+                     "grad_rel_err": g_err, "explicit_rel_err": e_err,
+                     "bit_equal": bit_equal, "ms": ms, "kernel_ms": kern,
+                     "products_ms": ms - kern, "plain_ms": plain,
+                     "explicit_plain_ms": explicit, "bound_ms": b_ms,
+                     "bound_by": b_by}
+    log(f"phase 7a: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 P5_TREE = dict(train_seeds=(7401, 7402, 7403), val_seeds=(7404,), T=8,
@@ -1730,7 +1791,8 @@ def p5_train_path(tmp):
         f"launches {counts}, B1' backward calls {bwd_calls}")
     if not (np.isfinite(losses).all() and np.isfinite(gnorms).all()):
         fail("p5_train: a loss or grad_norm is not finite")
-    expect_launches("p5_train", counts, {"fused_pool_cost_match": P5_STEPS * T})
+    expect_launches("p5_train", counts, {"fused_pool_cost_match": P5_STEPS * T,
+                                         "fused_pool_cost_match_backward": P5_STEPS * T})
     if bwd_calls != P5_STEPS * T:
         fail(f"p5_train: {bwd_calls} B1' backward calls, expected {P5_STEPS * T}")
 
@@ -1848,7 +1910,7 @@ def ckpt_train_path():
                      f"from JAX, {d_cpu:.2e} from the CPU")
     n = len(TRAIN_CKPT["seeds"]) * TRAIN_CKPT["T"]
     expect_launches("checkpoint train steps on the kernels", launches["kernels"],
-                    {"fused_pool_cost_match": n})
+                    {"fused_pool_cost_match": n, "fused_pool_cost_match_backward": n})
     if bwd_calls["kernels"] != n:
         fail(f"checkpoint train steps on the kernels: {bwd_calls['kernels']} "
              f"B1' backward calls, expected {n}")
@@ -1952,75 +2014,78 @@ def proposal_train_steps(device):
 
 def b4_backward_check():
     """Phase 9a: B4' (multilevel_roi_align's autograd.Function: B4's kernel
-    forward, autograd through the plain version backward) at the
-    full-width detector's shapes: a 256x448 R-50-FPN pyramid (C=256), K=32
-    proposals (train_proposal.py's post-NMS top-n) and K=128, both heads.
-    The forward against the plain version (1e-4 + 1e-4 |want|), the four
-    level gradients of a seeded upstream gradient against autograd through
-    the plain version (1e-4 relative), one backward call counted per
-    backward; device ms per backward (torch.profiler), its bound and the
-    plain backward's time."""
+    forward, one roi_align_backward launch backward) at the full-width
+    detector's shapes: a 256x448 R-50-FPN pyramid (C=256), K=32 proposals
+    (train_proposal.py's post-NMS top-n) and K=128, both heads. The forward
+    against the plain version (1e-4 + 1e-4 |want|), the four level
+    gradients of a seeded upstream gradient against autograd through the
+    plain version and against the explicit plain backward (1e-4 relative
+    per level), two backwards bit-equal, one launch and one backward call
+    per backward; device ms per backward (torch.profiler), its bound, the
+    old route's (autograd through the plain version: all four levels again
+    and their VJP) and the explicit plain backward's."""
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    from dmm_net_tpu_torch.kernels import backward_calls, reset_launch_counts
-    from dmm_net_tpu_torch.kernels.roi_align import (multilevel_roi_align,
-                                                     multilevel_roi_align_plain)
-    out = {}
+    from dmm_net_tpu_torch.kernels import (backward_calls, launch_counts,
+                                           reset_launch_counts)
+    from dmm_net_tpu_torch.kernels.roi_align import (
+        multilevel_roi_align, multilevel_roi_align_backward_plain,
+        multilevel_roi_align_plain)
+    out, t0 = {}, time.perf_counter()
     for K in (32, 128):
         for head, size in (("box", (7, 7)), ("mask", (14, 14))):
             gen = torch.Generator(device="cuda").manual_seed(40 + K + size[0])
             levels, boxes = pyramid(gen), detector_boxes(gen, K, 256, 448)
             g = torch.randn(K, 256, *size, device="cuda", generator=gen)
 
+            def leaves():
+                return [t.clone().requires_grad_(True) for t in levels]
+
             def run(fn):
-                xs = [t.clone().requires_grad_(True) for t in levels]
+                xs = leaves()
                 y = fn(xs, boxes, size, 2)
                 return y, torch.autograd.grad(y, xs, g)
 
             reset_launch_counts()
-            (yk, gk), (yp, gp) = run(multilevel_roi_align), \
-                run(multilevel_roi_align_plain)
+            yk, gk = run(multilevel_roi_align)
+            launches = launch_counts()["roi_align_backward"]
             calls = backward_calls()["roi_align"]
+            _, gk2 = run(multilevel_roi_align)
+            yp, gp = run(multilevel_roi_align_plain)
+            ge = multilevel_roi_align_backward_plain(levels, boxes, g, size, 2)
+            bit_equal = all(torch.equal(a, b) for a, b in zip(gk, gk2))
             name = f"{head} head K={K} -> {size[0]}x{size[1]}"
             err = roi_compare(f"B4' forward, {name}", yk, yp)
             g_abs = [(a - b).abs().max().item() for a, b in zip(gk, gp)]
             g_err = [e / max(b.abs().max().item(), 1e-30) for e, b in zip(g_abs, gp)]
+            e_err = [(a - b).abs().max().item() / max(b.abs().max().item(), 1e-30)
+                     for a, b in zip(gk, ge)]
             log(f"B4' backward, {name}: max|dgrad| / max|grad| per level p2..p5 "
-                + ", ".join(f"{e:.3e}" for e in g_err) + f" (limit 1e-4), max|dgrad| "
-                f"{max(g_abs):.3e}; {calls} backward call counted")
-            if max(g_err) > 1e-4 or calls != 1 or not all(
-                    torch.isfinite(t).all() for t in gk):
-                fail(f"B4' gradients disagree with autograd through the plain "
-                     f"version, or {calls} backward calls counted, at {name}")
+                f"against autograd through the plain version "
+                + ", ".join(f"{e:.3e}" for e in g_err) + ", against the explicit "
+                "plain backward " + ", ".join(f"{e:.3e}" for e in e_err)
+                + f" (limit 1e-4), max|dgrad| {max(g_abs):.3e}; two backwards "
+                f"bit-equal {bit_equal}; {launches} launch, {calls} backward call")
+            if max(g_err) > 1e-4 or max(e_err) > 1e-4 or not bit_equal \
+                    or launches != 1 or calls != 1 \
+                    or not all(torch.isfinite(t).all() for t in gk):
+                fail(f"B4' at {name}: gradients disagree with the plain versions, "
+                     f"differ between two runs, or launches {launches} / calls "
+                     f"{calls}")
 
-            def timed(fn, n=20):
-                """Device ms per backward (the kernels inside its span)."""
-                run(fn)
-                leaves = [[t.clone().requires_grad_(True) for t in levels]
-                          for _ in range(n)]
-                torch.cuda.synchronize()
-                with profile(activities=[ProfilerActivity.CPU,
-                                         ProfilerActivity.CUDA]) as prof:
-                    for xs in leaves:
-                        y = fn(xs, boxes, size, 2)
-                        torch.cuda.synchronize()
-                        with torch.profiler.record_function("b4_backward"):
-                            torch.autograd.grad(y, xs, g)
-                            torch.cuda.synchronize()
-                spans = [e.time_range for e in prof.events()
-                         if e.name == "b4_backward" and e.device_type != DeviceType.CUDA]
-                if len(spans) != n:
-                    fail(f"B4' timing: {len(spans)} backward spans, not {n}")
-                us = sum(e.time_range.elapsed_us() for e in prof.events()
-                         if e.device_type == DeviceType.CUDA
-                         and e.name != "b4_backward"
-                         and not getattr(e, "is_user_annotation", False)
-                         and any(sp.start <= e.time_range.start <= sp.end
-                                 for sp in spans))
-                return us / 1e3 / n
+            def kernel_forward():
+                xs = leaves()
+                return multilevel_roi_align(xs, boxes, size, 2), xs
 
-            ms, plain = timed(multilevel_roi_align), timed(multilevel_roi_align_plain)
+            ms, _ = span_device_ms(kernel_forward,
+                                   lambda a: torch.autograd.grad(a[0], a[1], g),
+                                   20, f"B4' {name}")
+            plain, _ = span_device_ms(
+                leaves, lambda xs: torch.autograd.grad(
+                    multilevel_roi_align_plain(xs, boxes, size, 2), xs, g),
+                10, f"B4' old route {name}")
+            explicit, _ = span_device_ms(
+                lambda: None, lambda _: multilevel_roi_align_backward_plain(
+                    levels, boxes, g, size, 2), 10, f"B4' explicit plain {name}")
             # bytes: the upstream gradient and the boxes read, the four level
             # gradients written once (ROI-Align is linear in the levels, so
             # its gradient never reads them); operations: each output cell's
@@ -2030,18 +2095,22 @@ def b4_backward_check():
             ops = 10 * K * 256 * size[0] * size[1] * 2 * 2
             b_ms, b_by = bound_ms(byts, ops)
             log(f"B4' time, {name}: backward {ms:.4f} ms on the device (the "
-                f"plain recompute on all 4 levels and its VJP), plain backward "
-                f"alone {plain:.4f} ms; bound {b_ms:.4f} ms ({b_by}: "
+                f"kernel); old route (the plain version on all 4 levels again "
+                f"and its VJP) {plain:.4f} ms; explicit plain backward "
+                f"{explicit:.4f} ms; bound {b_ms:.4f} ms ({b_by}: "
                 f"{byts / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP)")
             out[(K, head)] = {"forward_max_abs_err": err, "max_abs_err": max(g_abs),
                               "grad_rel_err": max(g_err),
-                              "ms": ms, "plain_ms": plain, "bound_ms": b_ms,
-                              "bound_by": b_by}
+                              "explicit_rel_err": max(e_err), "bit_equal": bit_equal,
+                              "ms": ms, "plain_ms": plain, "explicit_plain_ms": explicit,
+                              "bound_ms": b_ms, "bound_by": b_by}
     per_image = {k: out[(32, "box")][k] + out[(32, "mask")][k]
-                 for k in ("ms", "plain_ms", "bound_ms")}
-    log(f"B4' per train image (K=32, box + mask head, 2 backward calls): "
-        f"{per_image['ms']:.4f} ms, plain {per_image['plain_ms']:.4f} ms, bound "
+                 for k in ("ms", "plain_ms", "explicit_plain_ms", "bound_ms")}
+    log(f"B4' per train image (K=32, box + mask head, 2 launches): "
+        f"{per_image['ms']:.4f} ms, old route {per_image['plain_ms']:.4f} ms, "
+        f"explicit plain {per_image['explicit_plain_ms']:.4f} ms, bound "
         f"{per_image['bound_ms']:.4f} ms")
+    log(f"phase 9a: {time.perf_counter() - t0:.1f} s")
     return out, per_image
 
 
@@ -2087,7 +2156,8 @@ def proposal_train_path(tmp):
         f"{['%.1f' % t for t in times]} (median {np.median(times):.1f}), peak "
         f"memory {peak / 2**30:.2f} GiB, launches {counts}, B4' backward calls {bwd}")
     expect_launches("R-50 detector training", counts,
-                    {"roi_align": 2 * B * steps, "fused_pool_cost_match": 0})
+                    {"roi_align": 2 * B * steps, "roi_align_backward": 2 * B * steps,
+                     "fused_pool_cost_match": 0})
     if bwd != 2 * B * steps:
         fail(f"R-50 detector training: {bwd} B4' backward calls, expected "
              f"{2 * B * steps}")
@@ -2139,7 +2209,8 @@ def proposal_steps_path():
             fail(f"detector train steps: {k} off by {d_jax:.2e} from JAX, "
                  f"{d_cpu:.2e} from the CPU")
     n = 2 * PROPOSAL_STEPS["batch"] * 3
-    expect_launches("detector train steps", counts, {"roi_align": n})
+    expect_launches("detector train steps", counts,
+                    {"roi_align": n, "roi_align_backward": n})
     if bwd != n:
         fail(f"detector train steps: {bwd} B4' backward calls, expected {n}")
     return card, counts, bwd
@@ -2185,7 +2256,8 @@ def learning_path(tmp):
         f"(floors {LEARN_FLOORS}); last total loss {r['history'][-1]['total']:.4f}; "
         f"median {np.median(times):.1f} ms per step, {secs:.1f} s in all; "
         f"launches {counts}, B4' backward calls {bwd}")
-    expect_launches("learning proof", counts, {"roi_align": 2 * steps + 2 * 32})
+    expect_launches("learning proof", counts, {"roi_align": 2 * steps + 2 * 32,
+                                               "roi_align_backward": 2 * steps})
     if bwd != 2 * steps:
         fail(f"learning proof: {bwd} B4' backward calls, expected {2 * steps}")
     if not (box["AP50"] > LEARN_FLOORS["box_AP50"]
@@ -2309,7 +2381,8 @@ def dcn_path():
         f"memory {peak / 2**30:.2f} GiB, launches {counts}, B4' backward calls {bwd}")
     if not all(np.isfinite(v) for h in hist for v in h.values()):
         fail(f"DCN detector training: a loss part is not finite: {hist}")
-    expect_launches("DCN detector training", counts, {"roi_align": 16})
+    expect_launches("DCN detector training", counts,
+                    {"roi_align": 16, "roi_align_backward": 16})
     if bwd != 16:
         fail(f"DCN detector training: {bwd} B4' backward calls, expected 16")
 
@@ -3704,26 +3777,6 @@ def main() -> int:
              library_ms=None, batch4={k: b1_b4[k] for k in (
                  "ms", "call_ms", "plain_ms", "bound_ms", "bound_by",
                  "launch_ms", "sinkhorn_iter_ms")},
-             # B1' has no kernel of its own: its numbers ride on B1's entry
-             backward=dict(
-                 name="B1' (_PoolCostMatch.backward)",
-                 route="autograd through pool_cost_match_plain",
-                 source="dmm_net_tpu_torch/kernels/matcher.py",
-                 replaces="dmm_net_tpu/kernels/matcher.py:302",
-                 calls=p5_bwd_calls,
-                 calls_by_path={"p5_train": p5_bwd_calls,
-                                "ckpt_train_kernels": ckpt_train_bwd_calls,
-                                "mesh_p5_train_1rank_10a":
-                                    mesh["one_rank_10a"]["b1_backward"],
-                                "mesh_p5_train_2rank_10b_per_rank":
-                                    mesh["p5"]["b1_backward_per_rank"],
-                                "chain_dmm_11c": chain["dmm"]["backward_calls"][
-                                    "fused_pool_cost_match"]},
-                 shape="p5_train B=4 M=8 N=64 P=448 D=256 Pc=4096, epsilon 0.03",
-                 note="ms: the backward alone (the plain recompute and its "
-                      "VJP) after B1's kernel forward; plain_ms: the "
-                      "backward of a plain forward, without the recompute",
-                 library_ms=None, **b1_bwd),
              **b1),
         dict(name="fused_resolve_upsample", route="cuda",
              source="dmm_net_tpu_torch/csrc/resolve.cu",
@@ -3760,31 +3813,6 @@ def main() -> int:
                                **{f"chain_{k}_11c": chain[k]["launches"]["roi_align"]
                                   for k in ("detector", "dmm", "full_system", "drill")},
                                "ab_480p_11d": ab_480["b4_launches"]},
-             # B4' has no kernel of its own: its numbers ride on B4's entry
-             backward=dict(
-                 name="B4' (_MultilevelRoiAlign.backward)",
-                 route="autograd through multilevel_roi_align_plain",
-                 source="dmm_net_tpu_torch/kernels/roi_align.py",
-                 replaces="dmm_net_tpu/models/proposal/maskrcnn.py:96",
-                 calls=r50_bwd,
-                 calls_by_path={"r50_train_9b": r50_bwd, "train_steps_9c": steps9c_bwd,
-                                "learning_9d": learn_bwd, "dcn_9f": dcn_bwd,
-                                "mesh_detector_10d_per_rank":
-                                    mesh["detector"]["b4_backward_per_rank"],
-                                "chain_detector_11c":
-                                    chain["detector"]["backward_calls"]["roi_align"]},
-                 shape="per train image: box head K=32 -> 7x7 + mask head K=32 "
-                       "-> 14x14, C=256, 256x448 pyramid",
-                 note="ms: the backward alone (the plain recompute on all four "
-                      "levels and its VJP) after B4's kernel forward; "
-                      "plain_ms: the backward of a plain forward",
-                 library_ms=None,
-                 max_abs_err=max(r["max_abs_err"] for r in b4_bwd.values()),
-                 grad_rel_err=max(r["grad_rel_err"] for r in b4_bwd.values()),
-                 heads={f"K={k} {h}": r for (k, h), r in b4_bwd.items()},
-                 bound_by=("bytes" if all(r["bound_by"] == "bytes"
-                                          for r in b4_bwd.values()) else "operations"),
-                 **b4_bwd_image),
              max_abs_err=max(b4["box"]["max_abs_err"], b4["mask"]["max_abs_err"],
                              b4_extract),
              single_level_max_abs_err=b4_single,
@@ -3793,6 +3821,55 @@ def main() -> int:
              bound_by=("bytes" if all(r["bound_by"] == "bytes" for r in b4.values())
                        else "operations"),
              **{k: b4_img[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms")}),
+        dict(name="fused_pool_cost_match_backward", route="cuda",
+             source="dmm_net_tpu_torch/csrc/matcher.cu",
+             replaces="dmm_net_tpu/kernels/matcher.py:302",
+             launches=p5_counts["fused_pool_cost_match_backward"],
+             shape="p5_train B=4 M=8 N=64 P=448 D=256 Pc=4096, epsilon 0.03",
+             path="p5_train (phase 7b): one launch per frame of a train step",
+             launches_by_path={
+                 "p5_train": p5_counts["fused_pool_cost_match_backward"],
+                 "ckpt_train_kernels":
+                     ckpt_train_launches["kernels"]["fused_pool_cost_match_backward"]},
+             backward_calls_by_path={
+                 "p5_train": p5_bwd_calls, "ckpt_train_kernels": ckpt_train_bwd_calls,
+                 "mesh_p5_train_1rank_10a": mesh["one_rank_10a"]["b1_backward"],
+                 "mesh_p5_train_2rank_10b_per_rank": mesh["p5"]["b1_backward_per_rank"],
+                 "chain_dmm_11c":
+                     chain["dmm"]["backward_calls"]["fused_pool_cost_match"]},
+             note="ms: the backward on the device, matcher_backward_kernel "
+                  "(kernel_ms) and the four products as torch.bmm / baddbmm "
+                  "(products_ms); plain_ms: the old route, autograd through "
+                  "the plain version (its forward again and its VJP)",
+             library_ms=None, cases={k: b1_bwd[k] for k in ("p3", "p4")},
+             **b1_bwd["p5"]),
+        dict(name="roi_align_backward", route="cuda",
+             source="dmm_net_tpu_torch/csrc/roi_align.cu",
+             replaces="dmm_net_tpu/models/proposal/maskrcnn.py:96",
+             launches=r50_counts["roi_align_backward"],
+             shape="per train image: box head K=32 -> 7x7 + mask head K=32 "
+                   "-> 14x14, C=256, 256x448 pyramid",
+             path="detector training (phase 9b): 2 launches per train image",
+             launches_by_path={"r50_train_9b": r50_counts["roi_align_backward"],
+                               "train_steps_9c": steps9c_counts["roi_align_backward"],
+                               "learning_9d": learn_counts["roi_align_backward"],
+                               "dcn_9f": dcn_counts["roi_align_backward"]},
+             backward_calls_by_path={
+                 "r50_train_9b": r50_bwd, "train_steps_9c": steps9c_bwd,
+                 "learning_9d": learn_bwd, "dcn_9f": dcn_bwd,
+                 "mesh_detector_10d_per_rank": mesh["detector"]["b4_backward_per_rank"],
+                 "chain_detector_11c": chain["detector"]["backward_calls"]["roi_align"]},
+             note="ms: roi_align_backward_kernel on the device per train "
+                  "image; plain_ms: the old route, autograd through the "
+                  "plain version (all four levels again and their VJP)",
+             library_ms=None,
+             max_abs_err=max(r["max_abs_err"] for r in b4_bwd.values()),
+             grad_rel_err=max(r["grad_rel_err"] for r in b4_bwd.values()),
+             bit_equal=all(r["bit_equal"] for r in b4_bwd.values()),
+             heads={f"K={k} {h}": r for (k, h), r in b4_bwd.items()},
+             bound_by=("bytes" if all(r["bound_by"] == "bytes"
+                                      for r in b4_bwd.values()) else "operations"),
+             **b4_bwd_image),
     ]
     print(json.dumps({"kernels": kernels, "frames_per_s": fps,
                       "detector_ms_per_image": det_ms,

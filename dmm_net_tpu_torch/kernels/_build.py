@@ -55,10 +55,13 @@ _host_lock = threading.Lock()
 _LAUNCHES: Dict[str, int] = {"fused_pool_cost_match": 0,
                              "fused_resolve_upsample": 0,
                              "fused_cost_match": 0,
-                             "roi_align": 0}
+                             "roi_align": 0,
+                             "fused_pool_cost_match_backward": 0,
+                             "roi_align_backward": 0}
 # Calls of B1's and B4's backwards on CUDA (kernels/matcher.py,
-# kernels/roi_align.py): autograd through the plain version, with no kernel
-# of their own, so counted apart from launches.
+# kernels/roi_align.py), under their forwards' names. Each launches its
+# kernel (B1' and B4', counted above) once per call, so on CUDA a backward's
+# calls equal its kernel's launches; a B4' call with no boxes launches none.
 _BACKWARD_CALLS: Dict[str, int] = {"fused_pool_cost_match": 0, "roi_align": 0}
 
 # C signatures: every pointer and the stream are c_void_p (a bare Python int
@@ -68,8 +71,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "matcher": {
         "dmm_fused_pool_cost_match":
-            [_P] * 9 + [_I] * 6 + [_F, _I, _F, _I, _F, _F, _P],
+            [_P] * 10 + [_I] * 6 + [_F, _I, _F, _I, _F, _F, _P],
         "dmm_fused_cost_match": [_P] * 8 + [_I] * 5 + [_F, _I, _F, _P],
+        "dmm_fused_pool_cost_match_backward":
+            [_P] * 14 + [_I] * 6 + [_F, _I, _F, _I, _F, _F, _P],
         "dmm_matcher_scratch_floats": [_I] * 6,
     },
     "resolve": {
@@ -82,6 +87,8 @@ _SIGNATURES = {
     "roi_align": {
         "dmm_roi_align":
             [_P] * 4 + [_I] * 8 + [_F] * 4 + [_I] + [_P] * 3 + [_I] * 5 + [_P],
+        "dmm_roi_align_backward":
+            [_P] * 4 + [_I] * 8 + [_F] * 4 + [_P] * 3 + [_I] * 5 + [_P],
     },
 }
 

@@ -13,14 +13,19 @@ latency floor at small batches).
 
 B1 is differentiable (B1', the counterpart of the JAX package's
 ``_fpcm_fwd`` / ``_fpcm_bwd`` custom VJP): ``_PoolCostMatch`` is a
-``torch.autograd.Function`` whose forward is the kernel (the plain version
-on the CPU) and whose backward recomputes ``pool_cost_match_plain`` on the
-saved inputs and differentiates it with autograd: the exact gradient of the
-unrolled Sinkhorn with respect to the embedding, both pooling and cost
-masks and the template features, none for the validity masks. The JAX
-backward is the same plain-jnp recompute, with no Pallas, so this is the
-faithful port rather than a fallback. ``matching.implicit_grad`` does not
-reach the fused path in either package.
+``torch.autograd.Function`` whose forward is the kernel and whose backward
+is the exact gradient of the unrolled Sinkhorn with respect to the
+embedding, both pooling and cost masks and the template features, none for
+the validity masks. On CUDA the backward is a kernel of its own in the same
+source (``matcher_backward_kernel``, one launch on the forward's scratch
+and the Sinkhorn duals the forward kept for it: the reverse sweep, the
+cost's tail), then four products for the mask and pooling inputs, which stay
+``torch.baddbmm`` / ``torch.bmm`` as the JAX backward leaves them to XLA;
+products for inputs that need no gradient are skipped. On the CPU it is
+``pool_cost_match_backward_plain``, the same forward-then-reverse sweep
+written step by step in torch. The JAX backward differentiates its plain
+jnp recompute, with no Pallas. ``matching.implicit_grad`` does not reach
+the fused path in either package.
 
 Each wrapper launches its kernel for CUDA tensors (or raises) and runs its
 plain version (``pool_cost_match_plain``, ``cost_match_plain``) for CPU
@@ -36,10 +41,12 @@ from typing import Optional
 import torch
 
 from dmm_net_tpu_torch.kernels import _build
-from dmm_net_tpu_torch.ops.cost import cost_matrix
-from dmm_net_tpu_torch.ops.matching import sinkhorn_match
+from dmm_net_tpu_torch.ops.cost import _EPS, cost_matrix
+from dmm_net_tpu_torch.ops.matching import _NEG, sinkhorn_match
+from dmm_net_tpu_torch.ops.pool_cost import pool_cost_sinkhorn
 
 _MAX_M = 64     # csrc/matcher.cu: 8 template rows per thread x 8 warps
+_MAX_N = 1024   # csrc/matcher.cu: 32 columns per lane in the Sinkhorn's row pass
 
 
 def _bool(mask: torch.Tensor) -> torch.Tensor:
@@ -63,6 +70,9 @@ def _check_cuda_inputs(what, shapes, M) -> None:
                              f" (contiguous={t.is_contiguous()})")
     if not 1 <= M <= _MAX_M:
         raise ValueError(f"{what}: M={M} outside [1, {_MAX_M}]")
+    N = shapes["col_mask"][1][1]
+    if not 1 <= N <= _MAX_N:
+        raise ValueError(f"{what}: N={N} outside [1, {_MAX_N}]")
 
 
 def _scratch(lib, device, B, M, N, Pc, D, pooling: bool) -> torch.Tensor:
@@ -94,15 +104,93 @@ def pool_cost_match_plain(emb, prop_masks_pool, tmpl_masks_cost,
                           epsilon: float = 0.05, iters: int = 30,
                           iou_weight: float = 0.3,
                           epsilon_init: Optional[float] = None) -> torch.Tensor:
-    """Plain PyTorch version of the fused kernel (same shapes)."""
+    """Plain PyTorch version of the fused kernel (same shapes), in float32."""
+    floats = (emb, prop_masks_pool, tmpl_masks_cost, prop_masks_cost, tmpl_feats)
+    return pool_cost_sinkhorn(*(t.float() for t in floats), _bool(row_mask),
+                              _bool(col_mask), epsilon, iters, iou_weight,
+                              epsilon_init).X
+
+
+def pool_cost_match_backward_plain(emb, prop_masks_pool, tmpl_masks_cost,
+                                   prop_masks_cost, tmpl_feats, row_mask,
+                                   col_mask, gX, epsilon: float = 0.05,
+                                   iters: int = 30, iou_weight: float = 0.3,
+                                   epsilon_init: Optional[float] = None,
+                                   needs=(True,) * 5):
+    """Plain PyTorch version of B1': the gradients of
+    ``pool_cost_match_plain``'s X with respect to (emb, prop_masks_pool,
+    tmpl_masks_cost, prop_masks_cost, tmpl_feats) for an upstream gradient
+    gX (B, M, N), None where ``needs`` says no; float32, or float64 for
+    float64 inputs. The forward again (``ops.pool_cost.pool_cost_sinkhorn``,
+    which keeps each Sinkhorn step's duals and log-sum-exps), then the
+    reverse sweep: every dual enters as f + g - C, so each step adds to dC
+    what it takes from df or dg, with the row pass's weights
+    P = exp(z - lse) and the column pass's Q; then the cost's tail (IoU and
+    cosine) and the pooling. Rounding points as autograd through the plain
+    version: padded pairs, the clip at 30, a capped column, and the clamps
+    of the union and the pooling denominator at 1e-6 pass no gradient; a
+    NaN travels on."""
     rm, cm = _bool(row_mask), _bool(col_mask)
-    pmp = prop_masks_pool.float()
-    pooled = pmp @ emb.float()
-    pf = pooled / pmp.sum(-1, keepdim=True).clamp_min(1e-6)
-    C = cost_matrix(tmpl_masks_cost, prop_masks_cost, tmpl_feats, pf,
-                    row_mask=rm, col_mask=cm, iou_weight=iou_weight)
-    return sinkhorn_match(C, rm, cm, epsilon=epsilon, iters=iters,
-                          epsilon_init=epsilon_init)
+    ins = (emb, prop_masks_pool, tmpl_masks_cost, prop_masks_cost, tmpl_feats)
+    dt = torch.float64 if emb.dtype == torch.float64 else torch.float32
+    emb, pmp, tm, pm, tf = (t.to(dt) for t in ins)
+    gX = gX.to(dt)
+    lam = iou_weight
+    tr = pool_cost_sinkhorn(emb, pmp, tm, pm, tf, rm, cm, epsilon, iters,
+                            iou_weight, epsilon_init)
+    pair, C, g, lr = tr.pair, tr.C, tr.g, tr.lr
+    neg, zero = torch.full_like(C, _NEG), torch.zeros_like(C)
+    zero_f, zero_g = torch.zeros_like(tr.f), torch.zeros_like(g)
+
+    # X = exp(min(L, 30)) with L = (f + g - C) / epsilon: dL = gX * X below
+    # the clip; C takes -dL / epsilon, f and g +dL / epsilon
+    inc = torch.where(pair & (tr.L <= 30.0), -(gX * tr.X) / epsilon, zero)
+    dC = inc
+    df = torch.where(rm, -inc.sum(-1), zero_f)
+    negC = torch.where(pair, -C / epsilon, neg)
+    P = torch.exp(negC + g[..., None, :] / epsilon - lr[..., :, None])
+    inc2 = torch.where(pair, df[..., :, None] * P, zero)
+    dC = dC + inc2
+    dg = -(inc + inc2).sum(-2)
+    for eps, g_in, lr, f, lc, h in reversed(tr.steps):
+        negC = torch.where(pair, -C / eps, neg)
+        dh = torch.where(cm & (h <= 0.0), dg, zero_g)          # the cap at 0
+        Q = torch.exp(negC + f[..., :, None] / eps - lc[..., None, :])
+        inc = torch.where(pair, dh[..., None, :] * Q, zero)
+        dC = dC + inc
+        df = torch.where(rm, -inc.sum(-1), zero_f)
+        P = torch.exp(negC + g_in[..., None, :] / eps - lr[..., :, None])
+        inc = torch.where(pair, df[..., :, None] * P, zero)
+        dC = dC + inc
+        dg = -inc.sum(-2)
+
+    # the cost's tail: iou = inter / max(union, 1e-6), the cosine through
+    # rsqrt(|t|^2 + 1e-12), pf = pooled / max(area, 1e-6)
+    d_iou = -(lam * dC)
+    inter, union, U = tr.inter, tr.union, tr.U
+    area, den, pf, rt, rp, tn, pn = tr.area, tr.den, tr.pf, tr.rt, tr.rp, tr.tn, tr.pn
+    du = torch.where(union >= _EPS, -d_iou * ((inter / U) / U), zero)
+    coef = d_iou / U - du
+    dcos = -((1.0 - lam) * dC)
+    grads = [None] * 5
+    if needs[2]:
+        grads[2] = coef @ pm + du.sum(-1)[..., None]
+    if needs[3]:
+        grads[3] = coef.transpose(-1, -2) @ tm + du.sum(-2)[..., None]
+    if needs[4]:
+        d_tn = dcos @ pn
+        grads[4] = rt * d_tn - rt ** 3 * (d_tn * tf).sum(-1, keepdim=True) * tf
+    if needs[0] or needs[1]:
+        d_pn = dcos.transpose(-1, -2) @ tn
+        d_pf = rp * d_pn - rp ** 3 * (d_pn * pf).sum(-1, keepdim=True) * pf
+        d_pooled = d_pf / den[..., None]
+        if needs[0]:
+            grads[0] = pmp.transpose(-1, -2) @ d_pooled
+        if needs[1]:
+            d_area = torch.where(area >= 1e-6, -(d_pf * pf).sum(-1) / den,
+                                 torch.zeros_like(area))
+            grads[1] = d_pooled @ emb.transpose(-1, -2) + d_area[..., None]
+    return tuple(None if d is None else d.to(x.dtype) for d, x in zip(grads, ins))
 
 
 def fused_pool_cost_match(emb: torch.Tensor, prop_masks_pool: torch.Tensor,
@@ -142,10 +230,22 @@ def fused_pool_cost_match(emb: torch.Tensor, prop_masks_pool: torch.Tensor,
         epsilon_init)
 
 
+def _anneal(epsilon, iters, epsilon_init):
+    """The kernels' annealed schedule, max(eps0 * exp(k * log_decay), eps):
+    (anneal, log_decay)."""
+    if epsilon_init is None or epsilon_init <= epsilon:
+        return False, 0.0
+    steps = max(int(iters * 0.7), 1)
+    return True, math.log((epsilon / epsilon_init) ** (1.0 / steps))
+
+
 def _launch_pool_cost_match(emb, prop_masks_pool, tmpl_masks_cost,
                             prop_masks_cost, tmpl_feats, row_mask, col_mask,
-                            epsilon, iters, iou_weight, epsilon_init):
-    """One B1 launch on checked CUDA inputs."""
+                            epsilon, iters, iou_weight, epsilon_init,
+                            keep: bool = False):
+    """One B1 launch on checked CUDA inputs; returns X, and with ``keep``
+    what B1' reads: the scratch (pooled features, cosine, partial sums) and
+    the Sinkhorn's duals (B * (iters + 1) * (M + N) floats), else None."""
     B, P, D = emb.shape
     M, Pc = tmpl_masks_cost.shape[1:]
     N = prop_masks_pool.shape[1]
@@ -154,32 +254,86 @@ def _launch_pool_cost_match(emb, prop_masks_pool, tmpl_masks_cost,
     lib = _build.library("matcher")
     scratch = _scratch(lib, emb.device, B, M, N, Pc, D, pooling=True)
     X = torch.empty((B, M, N), dtype=torch.float32, device=emb.device)
-    anneal = epsilon_init is not None and epsilon_init > epsilon
-    log_decay = 0.0
-    if anneal:
-        steps = max(int(iters * 0.7), 1)
-        log_decay = math.log((epsilon / epsilon_init) ** (1.0 / steps))
+    hist = (torch.empty((B * (iters + 1) * (M + N),), dtype=torch.float32,
+                        device=emb.device) if keep else None)
+    anneal, log_decay = _anneal(epsilon, iters, epsilon_init)
     with torch.cuda.device(emb.device):
         err = lib.dmm_fused_pool_cost_match(
             emb.data_ptr(), prop_masks_pool.data_ptr(),
             tmpl_masks_cost.data_ptr(), prop_masks_cost.data_ptr(),
             tmpl_feats.data_ptr(), rm.data_ptr(), cm.data_ptr(),
-            scratch.data_ptr(), X.data_ptr(), B, M, N, P, Pc, D, float(epsilon),
+            scratch.data_ptr(), X.data_ptr(),
+            None if hist is None else hist.data_ptr(), B, M, N, P, Pc, D, float(epsilon),
             int(iters), float(iou_weight), int(anneal),
             float(epsilon_init or 0.0), float(log_decay),
             torch.cuda.current_stream(emb.device).cuda_stream)
     _build.check(err, "fused_pool_cost_match")
     _build.count("fused_pool_cost_match")
-    return X
+    return X, ((scratch, hist) if keep else None)
+
+
+def _launch_pool_cost_match_backward(saved, kept, gX, epsilon, iters,
+                                     iou_weight, epsilon_init, needs):
+    """One B1' launch on the forward's inputs, scratch and duals, then the
+    products for the inputs in ``needs``: d_emb = pmp^T @ d_pooled,
+    d_pmp = d_pooled @ emb^T + d_area, d_tm = coef @ pm + urow,
+    d_pm = coef^T @ tm + ucol (torch.bmm / baddbmm); d_tf from the kernel."""
+    emb, pmp, tm, pm, tf, row_mask, col_mask = saved
+    B, P, D = emb.shape
+    M, Pc = tm.shape[1:]
+    N = pmp.shape[1]
+    dev = emb.device
+    if gX.device != dev or gX.dtype != torch.float32 or tuple(gX.shape) != (B, M, N):
+        raise ValueError(f"fused_pool_cost_match backward: gX {tuple(gX.shape)} "
+                         f"{gX.dtype} on {gX.device}, expected ({B}, {M}, {N}) "
+                         f"float32 on {dev}")
+    gX = gX.contiguous()
+    rm = row_mask.to(torch.float32).contiguous()
+    cm = col_mask.to(torch.float32).contiguous()
+
+    def f32(*shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    scratch, hist = kept
+    dC = f32(B, M, N)
+    coef, urow, ucol = f32(B, M, N), f32(B, M), f32(B, N)
+    d_tf, d_pooled, d_area = f32(B, M, D), f32(B, N, D), f32(B, N)
+    anneal, log_decay = _anneal(epsilon, iters, epsilon_init)
+    lib = _build.library("matcher")
+    with torch.cuda.device(dev):
+        err = lib.dmm_fused_pool_cost_match_backward(
+            pmp.data_ptr(), tf.data_ptr(), rm.data_ptr(), cm.data_ptr(),
+            gX.data_ptr(), scratch.data_ptr(), hist.data_ptr(), dC.data_ptr(),
+            coef.data_ptr(), urow.data_ptr(), ucol.data_ptr(), d_tf.data_ptr(),
+            d_pooled.data_ptr(), d_area.data_ptr(), B, M, N, P, Pc, D,
+            float(epsilon), int(iters), float(iou_weight), int(anneal),
+            float(epsilon_init or 0.0), float(log_decay),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "fused_pool_cost_match_backward")
+    _build.count("fused_pool_cost_match_backward")
+    grads = [None] * 5
+    if needs[0]:
+        grads[0] = torch.bmm(pmp.transpose(1, 2), d_pooled)
+    if needs[1]:
+        grads[1] = torch.baddbmm(d_area[..., None], d_pooled, emb.transpose(1, 2))
+    if needs[2]:
+        grads[2] = torch.baddbmm(urow[..., None], coef, pm)
+    if needs[3]:
+        grads[3] = torch.baddbmm(ucol[..., None], coef.transpose(1, 2), tm)
+    if needs[4]:
+        grads[4] = d_tf
+    return tuple(grads)
 
 
 class _PoolCostMatch(torch.autograd.Function):
     """B1 with B1' as its backward. Forward: the CUDA kernel (the plain
     version for CPU tensors); it saves the five float inputs and the two
-    validity masks. Backward: ``pool_cost_match_plain`` recomputed on
-    detached copies under ``enable_grad`` and differentiated by
-    ``torch.autograd.grad``; on CUDA each backward counts one call in
-    ``_build.backward_calls()`` (it launches no kernel of its own)."""
+    validity masks, and on CUDA, when an input needs a gradient, the
+    kernel's scratch and the Sinkhorn's duals. Backward: B1''s kernel for CUDA tensors (one
+    ``fused_pool_cost_match_backward`` launch, then the products), the
+    plain version ``pool_cost_match_backward_plain`` for CPU tensors; on
+    CUDA each backward also counts one call in
+    ``_build.backward_calls()``."""
 
     @staticmethod
     def forward(ctx, emb, prop_masks_pool, tmpl_masks_cost, prop_masks_cost,
@@ -192,16 +346,20 @@ class _PoolCostMatch(torch.autograd.Function):
                         epsilon_init=epsilon_init)
         if emb.device.type == "cpu":
             return pool_cost_match_plain(*args, **ctx.opts)
-        return _launch_pool_cost_match(*args, **ctx.opts)
+        X, ctx.kept = _launch_pool_cost_match(
+            *args, **ctx.opts, keep=any(ctx.needs_input_grad[:5]))
+        return X
 
     @staticmethod
     def backward(ctx, gX):
-        *floats, row_mask, col_mask = ctx.saved_tensors
-        with torch.enable_grad():
-            xs = [t.detach().requires_grad_(True) for t in floats]
-            X = pool_cost_match_plain(*xs, row_mask, col_mask, **ctx.opts)
-            grads = torch.autograd.grad(X, xs, gX)
-        if gX.device.type == "cuda":
+        saved = ctx.saved_tensors
+        needs = ctx.needs_input_grad[:5]
+        if gX.device.type == "cpu":
+            grads = pool_cost_match_backward_plain(*saved, gX, **ctx.opts,
+                                                   needs=needs)
+        else:
+            grads = _launch_pool_cost_match_backward(saved, ctx.kept, gX,
+                                                     **ctx.opts, needs=needs)
             _build.count_backward("fused_pool_cost_match")
         return (*grads, None, None, None, None, None, None)
 

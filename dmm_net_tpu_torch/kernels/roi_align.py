@@ -20,11 +20,15 @@ the layout the detector's heads consume.
 
 B4' is ``multilevel_roi_align``'s gradient with respect to the four levels
 (the detector's training needs it for both heads): ``_MultilevelRoiAlign``,
-a ``torch.autograd.Function`` whose forward is B4 and whose backward is
-autograd through ``multilevel_roi_align_plain``, as the JAX detector's
-``roi_align_mxu`` is differentiated by XLA (no backward kernel there
-either). The boxes get no gradient: the detector stops gradients at its
-proposals.
+a ``torch.autograd.Function`` whose forward is B4 and whose backward is a
+kernel of its own in the same source (``roi_align_backward_kernel``: each
+level pixel gathers the taps of the boxes on its level, in box order, so it
+is written once, with no atomics, and the same from run to run). It
+replaces XLA's gradient of the reference's ``_multilevel_roi_align`` (the
+JAX detector differentiates ``roi_align_mxu`` on all four levels; no Pallas
+backward there). On the CPU the backward is its plain version
+``multilevel_roi_align_backward_plain``. The boxes get no gradient: the
+detector stops gradients at its proposals.
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ from typing import Optional, Sequence, Tuple
 import torch
 
 from dmm_net_tpu_torch.kernels import _build
-from dmm_net_tpu_torch.ops.roi_pool import roi_align_mxu
+from dmm_net_tpu_torch.ops.roi_pool import _interp_matrix, roi_align_mxu
 
 # csrc/roi_align.cu limits: oh and ow up to 16 (one output per thread of a
 # 256-thread block, each rounded up to a power of two), sampling ratio up
@@ -66,6 +70,33 @@ def multilevel_roi_align_plain(levels: Sequence[torch.Tensor], boxes: torch.Tens
         roi_align_mxu(f, boxes, out_size, sampling_ratio, 1.0 / 2 ** (i + 2))
         for i, f in enumerate(levels)])                  # (L, K, C, oh, ow)
     return stacked[fpn_levels(boxes), torch.arange(boxes.shape[0], device=boxes.device)]
+
+
+def multilevel_roi_align_backward_plain(levels: Sequence[torch.Tensor],
+                                        boxes: torch.Tensor, g_out: torch.Tensor,
+                                        out_size: Tuple[int, int],
+                                        sampling_ratio: int = 2) -> list:
+    """Plain version of B4': the gradients of ``multilevel_roi_align_plain``
+    with respect to the four levels (only their shapes and dtypes are read)
+    for the upstream gradient g_out (K, C, oh, ow). For the boxes
+    k on level l: grad_l = sum_k Ay_k^T @ g_k @ Ax_k with
+    ``roi_align_mxu``'s interpolation matrices, one product over the level's
+    boxes; float32, or float64 for float64 levels (the interpolation weights
+    are float32 either way, as in the forward). The other levels' boxes add
+    nothing; the boxes get no gradient."""
+    oh, ow = out_size
+    lvl = fpn_levels(boxes)
+    out = []
+    for i, f in enumerate(levels):
+        C, H, W = f.shape
+        dt = torch.promote_types(f.dtype, torch.float32)
+        k = torch.nonzero(lvl == i).flatten()
+        b = boxes[k].float() * (1.0 / 2 ** (i + 2))
+        Ay = _interp_matrix(b[:, 1], b[:, 3] - b[:, 1], oh, sampling_ratio, H).to(dt)
+        Ax = _interp_matrix(b[:, 0], b[:, 2] - b[:, 0], ow, sampling_ratio, W).to(dt)
+        t = torch.einsum("kyh,kcyx->kchx", Ay, g_out[k].to(dt))
+        out.append(torch.einsum("kchx,kxw->chw", t, Ax).to(f.dtype))
+    return out
 
 
 def _check(feats: Sequence[torch.Tensor], boxes: torch.Tensor) -> None:
@@ -121,36 +152,70 @@ def _launch(feats: Sequence[torch.Tensor], scales: Sequence[float],
     return out
 
 
+def _launch_backward(shapes, boxes: torch.Tensor, level: torch.Tensor,
+                     g_out: torch.Tensor, oh: int, ow: int, s: int) -> list:
+    """B4''s kernel on CUDA tensors: the four level gradients (C, H_l, W_l)
+    float32 for the upstream gradient g_out (K, C, oh, ow) and the boxes'
+    levels (K,) int32; zeros with no launch when K = 0."""
+    dev = boxes.device
+    K = boxes.shape[0]
+    C = shapes[0][0]
+    if g_out.device != dev or g_out.dtype != torch.float32 or \
+            tuple(g_out.shape) != (K, C, oh, ow):
+        raise ValueError(f"roi_align backward: g_out {tuple(g_out.shape)} "
+                         f"{g_out.dtype} on {g_out.device}, expected "
+                         f"({K}, {C}, {oh}, {ow}) float32 on {dev}")
+    if s < 1 or s > _MAX_SAMPLING or not 1 <= oh <= _MAX_OUT or not 1 <= ow <= _MAX_OUT:
+        raise ValueError(f"roi_align backward: out_size {(oh, ow)} with "
+                         f"sampling_ratio {s} exceeds the kernel's limits "
+                         f"(sampling ratio <= {_MAX_SAMPLING}, oh and ow <= {_MAX_OUT})")
+    if K == 0:
+        return [torch.zeros(sh, dtype=torch.float32, device=dev) for sh in shapes]
+    grads = [torch.empty(sh, dtype=torch.float32, device=dev) for sh in shapes]
+    g_out = g_out.contiguous()
+    lib = _build.library("roi_align")
+    with torch.cuda.device(dev):
+        err = lib.dmm_roi_align_backward(
+            *[t.data_ptr() for t in grads], *[sh[1] for sh in shapes],
+            *[sh[2] for sh in shapes],
+            *[1.0 / 2 ** (i + 2) for i in range(_MAX_LEVELS)],
+            boxes.data_ptr(), level.data_ptr(), g_out.data_ptr(), K, C, oh, ow,
+            int(s), torch.cuda.current_stream(dev).cuda_stream)
+    _build.check(err, "roi_align_backward")
+    _build.count("roi_align_backward")
+    return grads
+
+
 class _MultilevelRoiAlign(torch.autograd.Function):
     """B4 with B4' as its backward. Forward: the CUDA kernel (the plain
-    version for CPU tensors); it saves the four levels and the boxes.
-    Backward: ``multilevel_roi_align_plain`` recomputed on detached levels
-    under ``enable_grad`` and differentiated by ``torch.autograd.grad``; on
-    CUDA each backward counts one call in ``_build.backward_calls()`` (it
-    launches no kernel of its own). The plain version aligns every box on
-    all four levels and keeps one, so the recompute does about 4x the work
-    of the box's own level; a CUDA backward that adds each output cell's
-    gradient into its taps on that level alone is later work."""
+    version for CPU tensors); it saves the boxes, their FPN levels and the
+    maps' shapes, not the maps: the gradient of ROI-Align never reads them.
+    Backward: B4''s kernel for CUDA tensors (one ``roi_align_backward``
+    launch), ``multilevel_roi_align_backward_plain`` for CPU tensors; on
+    CUDA each backward also counts one call in ``_build.backward_calls()``."""
 
     @staticmethod
     def forward(ctx, boxes, out_size, sampling_ratio, *levels):
-        ctx.save_for_backward(boxes, *levels)
         ctx.opts = (out_size, sampling_ratio)
+        ctx.levels = [(tuple(f.shape), f.dtype) for f in levels]
+        lvl = fpn_levels(boxes).to(torch.int32)
+        ctx.save_for_backward(boxes, lvl)
         if boxes.device.type == "cpu":
             return multilevel_roi_align_plain(levels, boxes, out_size,
                                               sampling_ratio)
-        lvl = fpn_levels(boxes).to(torch.int32)
         return _launch(levels, [1.0 / 2 ** (i + 2) for i in range(_MAX_LEVELS)],
                        boxes, lvl, out_size[0], out_size[1], sampling_ratio)
 
     @staticmethod
     def backward(ctx, g_out):
-        boxes, *levels = ctx.saved_tensors
-        with torch.enable_grad():
-            xs = [f.detach().requires_grad_(True) for f in levels]
-            out = multilevel_roi_align_plain(xs, boxes, *ctx.opts)
-            grads = torch.autograd.grad(out, xs, g_out)
-        if g_out.device.type == "cuda":
+        (out_size, s), (boxes, lvl) = ctx.opts, ctx.saved_tensors
+        if g_out.device.type == "cpu":
+            like = [torch.empty(sh, dtype=dt, device="meta") for sh, dt in ctx.levels]
+            grads = multilevel_roi_align_backward_plain(like, boxes, g_out,
+                                                        out_size, s)
+        else:
+            grads = _launch_backward([sh for sh, _ in ctx.levels], boxes, lvl,
+                                     g_out, *out_size, s)
             _build.count_backward("roi_align")
         return (None, None, None, *grads)
 

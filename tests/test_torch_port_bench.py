@@ -206,6 +206,21 @@ def test_bench_runs_on_the_cpu_when_asked(mode, monkeypatch, capsys, few_threads
     assert r["chunk"] == (2 if mode == "chunked_scan" else None)
 
 
+def test_bench_matcher_times_several_shapes_in_train_mode(capsys, few_threads):  # noqa: F811
+    """bench/bench_matcher_torch.py with --shape twice and --train: one row
+    per shape, keyed by its sizes, with the float inputs requiring a
+    gradient; --device-ms adds nothing on the CPU."""
+    r = _tool("bench_matcher_torch").main(
+        ["--device", "cpu", "--iters", "1", "--P", "16", "--D", "8", "--Pc", "64",
+         "--sinkhorn", "3", "--shape", "2,4,16", "--shape", "1,2,8", "--train",
+         "--device-ms", "5"])
+    assert list(r) == ["B=2 M=4 N=16", "B=1 M=2 N=8"]
+    for row in r.values():
+        assert set(row) == {"plain_ms", "kernel_ms"}
+        assert all(math.isfinite(v) and v > 0 for v in row.values())
+    assert capsys.readouterr().out.count(", train\n") == 2
+
+
 def test_bench_refuses_without_a_card(monkeypatch):
     monkeypatch.delenv("BENCH_DEVICE", raising=False)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

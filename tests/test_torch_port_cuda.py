@@ -458,6 +458,174 @@ def test_cuda_b4_backward_matches_plain(cuda_kernels, K, out_size):
         multilevel_roi_align(levels, boxes.clone().requires_grad_(True), out_size)
 
 
+def _b1_grads(fn, arrs, gX, **kw):
+    """X and the five gradients of sum(X * gX) through ``fn``."""
+    xs = [a.clone().requires_grad_(True) for a in arrs[:5]]
+    X = fn(*xs, *arrs[5:], **kw)
+    return X.detach(), torch.autograd.grad(X, xs, gX)
+
+
+def _within(got, want, rel):
+    """Every gradient within ``rel`` of its largest entry."""
+    for a, b in zip(got, want):
+        assert b.abs().max() > 0
+        assert (a - b).abs().max().item() <= rel * b.abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,epsilon,eps_init", [
+    ((2, 4, 16, 64, 32, 256), 0.1, None),          # the CPU tests' shapes
+    ((2, 4, 16, 64, 32, 256), 0.03, 0.2),
+    ((4, 8, 64, 448, 256, 4096), 0.03, None),       # p5_train
+    ((4, 16, 128, 448, 256, 4096), 0.05, None),     # p3
+    ((4, 32, 256, 448, 256, 4096), 0.05, None),     # p4
+    ((2, 64, 512, 64, 32, 256), 0.05, None),        # dC in device memory
+    ((1, 64, 800, 64, 32, 256), 0.05, None),        # dC and the history there
+    ((3, 5, 19, 37, 24, 300), 0.05, 0.5)])          # unaligned, annealed
+def test_cuda_b1_backward_kernel_matches_both_plain_versions(
+        cuda_kernels, shape, epsilon, eps_init):
+    """B1''s kernel (one fused_pool_cost_match_backward launch, one backward
+    call) against its explicit plain version on the same inputs and
+    against autograd through the plain forward: X within 2e-4, each
+    gradient within 1e-3 of its largest entry; padded rows and columns in
+    every case."""
+    from dmm_net_tpu_torch.kernels.matcher import pool_cost_match_backward_plain
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    arrs = _matcher_problem(gen, *shape)
+    gX = torch.randn(*shape[:3], device="cuda", generator=gen)
+    kw = dict(epsilon=epsilon, iters=30, epsilon_init=eps_init)
+    _build.reset_launch_counts()
+    Xk, gk = _b1_grads(fused_pool_cost_match, arrs, gX, **kw)
+    assert _build.launch_counts()["fused_pool_cost_match_backward"] == 1
+    assert _build.backward_calls()["fused_pool_cost_match"] == 1
+    Xp, gp = _b1_grads(pool_cost_match_plain, arrs, gX, **kw)
+    assert (Xk - Xp).abs().max().item() <= 2e-4
+    _within(gk, gp, 1e-3)
+    _within(gk, pool_cost_match_backward_plain(*arrs, gX, **kw), 1e-3)
+
+
+@pytest.mark.cuda
+def test_cuda_b1_backward_skips_unneeded_products_and_repeats_bitwise(cuda_kernels):
+    """Two backwards on the same inputs give the same bits; with only emb
+    and tmpl_feats requiring a gradient (as in the DMM's train step at
+    t = 0) the other inputs get none."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    arrs = _matcher_problem(gen, 4, 8, 64, 448, 256, 4096)
+    gX = torch.randn(4, 8, 64, device="cuda", generator=gen)
+    runs = [_b1_grads(fused_pool_cost_match, arrs, gX, epsilon=0.03)[1]
+            for _ in range(2)]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    emb, tf = arrs[0].clone().requires_grad_(True), arrs[4].clone().requires_grad_(True)
+    X = fused_pool_cost_match(emb, *arrs[1:4], tf, *arrs[5:], epsilon=0.03)
+    X.backward(gX)
+    assert torch.equal(emb.grad, runs[0][0]) and torch.equal(tf.grad, runs[0][4])
+    assert all(a.grad is None for a in arrs[1:4])
+
+
+@pytest.mark.cuda
+def test_cuda_b1_backward_keeps_a_nan_as_its_plain_version(cuda_kernels):
+    """A NaN in B1's embedding reaches the five gradients where autograd
+    through the plain version puts one, and only there."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    arrs = list(_matcher_problem(gen, 4, 16, 128, 448, 256, 4096))
+    arrs[0][1, 3, 5] = float("nan")
+    gX = torch.randn(4, 16, 128, device="cuda", generator=gen)
+    (_, gk), (_, gp) = (_b1_grads(fn, arrs, gX)
+                        for fn in (fused_pool_cost_match, pool_cost_match_plain))
+    for a, b in zip(gk, gp):
+        assert torch.isnan(b).any()
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
+
+
+@pytest.mark.cuda
+def test_cuda_b1_rejects_sizes_beyond_its_kernels(cuda_kernels):
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    for shape in [(1, 65, 8, 16, 8, 64), (1, 4, 1025, 16, 8, 64)]:
+        with pytest.raises(ValueError, match="outside"):
+            fused_pool_cost_match(*_matcher_problem(gen, *shape))
+
+
+def _roi_grads(fn, levels, boxes, g, out_size):
+    xs = [t.clone().requires_grad_(True) for t in levels]
+    return torch.autograd.grad(fn(xs, boxes, out_size, 2), xs, g)
+
+
+def _edge_boxes(H=256, W=448):
+    """Boxes on each of the four levels, at the image's border and past it,
+    and degenerate (under 1e-3 wide and high)."""
+    return torch.tensor([[10, 12, 60, 70], [0, 0, 120, 100], [300, 100, 448, 256],
+                         [-20, -10, 200, 250], [0, 0, 448, 256], [447, 255, 448, 256],
+                         [50, 60, 50.0005, 60.0005], [440, 0, 460, 30],
+                         [100, 80, 100.0002, 200], [-200, -200, 600, 500]],
+                        device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K", [0, 10, 32, 128])
+@pytest.mark.parametrize("out_size", [(7, 7), (14, 14)])
+def test_cuda_b4_backward_kernel_matches_both_plain_versions(cuda_kernels, K, out_size):
+    """B4''s kernel (one roi_align_backward launch, one backward call)
+    against its explicit plain version and against autograd through the
+    plain forward at the full-width detector's pyramid (C=256), 1e-4
+    relative per level; K = 10 is the edge boxes, K = 0 launches nothing
+    and gives zeros."""
+    from dmm_net_tpu_torch.kernels.roi_align import multilevel_roi_align_backward_plain
+    gen = torch.Generator(device="cuda").manual_seed(K + out_size[0])
+    levels = _pyramid(gen)
+    boxes = _edge_boxes() if K == 10 else _boxes(gen, K, 256, 448)
+    g = torch.randn(K, 256, *out_size, device="cuda", generator=gen)
+    _build.reset_launch_counts()
+    got = _roi_grads(multilevel_roi_align, levels, boxes, g, out_size)
+    assert _build.launch_counts()["roi_align_backward"] == (K > 0)
+    assert _build.backward_calls()["roi_align"] == 1
+    if K == 0:
+        assert all(t.shape == f.shape and not t.any() for t, f in zip(got, levels))
+        return
+    wants = (_roi_grads(multilevel_roi_align_plain, levels, boxes, g, out_size),
+             multilevel_roi_align_backward_plain(levels, boxes, g, out_size, 2))
+    for want in wants:
+        for a, b in zip(got, want):         # a level no box is on has no gradient
+            assert (a - b).abs().max().item() <= 1e-4 * max(b.abs().max().item(), 1e-30)
+
+
+@pytest.mark.cuda
+def test_cuda_b4_backward_repeats_bitwise_and_carries_a_nan(cuda_kernels):
+    """Two backwards give the same bits (each level pixel sums its boxes in
+    box order, no atomics). A NaN in one box's upstream gradient reaches
+    that box's taps, and only pixels where the plain version (whose dense
+    products spread it over the level's channel) has one."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    levels, boxes = _pyramid(gen), _boxes(gen, 128, 256, 448)
+    g = torch.randn(128, 256, 14, 14, device="cuda", generator=gen)
+    a, b = (_roi_grads(multilevel_roi_align, levels, boxes, g, (14, 14)) for _ in range(2))
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    k = int(torch.argmax((boxes[:, 2] - boxes[:, 0]) * (boxes[:, 3] - boxes[:, 1])))
+    g[k, 7, 3, 4] = float("nan")
+    got = _roi_grads(multilevel_roi_align, levels, boxes, g, (14, 14))
+    want = _roi_grads(multilevel_roi_align_plain, levels, boxes, g, (14, 14))
+    from dmm_net_tpu_torch.kernels.roi_align import fpn_levels
+    l = int(fpn_levels(boxes[k:k + 1])[0])
+    assert torch.isnan(got[l][7]).any()
+    for x, y in zip(got, want):
+        assert not (torch.isnan(x) & ~torch.isnan(y)).any()
+
+
+@pytest.mark.cuda
+def test_cuda_b4_backward_rejects_sizes_beyond_its_kernel(cuda_kernels):
+    from dmm_net_tpu_torch.kernels.roi_align import _launch_backward
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    levels, boxes = _pyramid(gen, C=8), _boxes(gen, 4, 256, 448)
+    lvl = torch.zeros(4, dtype=torch.int32, device="cuda")
+    shapes = [tuple(f.shape) for f in levels]
+    for oh, ow, s in [(17, 7, 2), (7, 7, 5)]:
+        with pytest.raises(ValueError, match="limits"):
+            _launch_backward(shapes, boxes, lvl, torch.zeros(4, 8, oh, ow, device="cuda"),
+                             oh, ow, s)
+    with pytest.raises(ValueError, match="expected"):
+        _launch_backward(shapes, boxes, lvl, torch.zeros(4, 8, 7, 7, device="cuda",
+                                                         dtype=torch.float64), 7, 7, 2)
+
+
 def _dcn_detector(device, **kw):
     from dmm_net_tpu_torch.models.proposal import MaskRCNN
     det = MaskRCNN(deform_stages=("c3", "c4", "c5"), device=device, seed=8, **kw)

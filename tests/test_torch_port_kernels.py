@@ -86,7 +86,9 @@ def test_wrappers_take_plain_version_on_cpu_without_launching():
         == (1, 4, 7, 7)
     assert launch_counts() == {"fused_pool_cost_match": 0,
                                "fused_resolve_upsample": 0,
-                               "fused_cost_match": 0, "roi_align": 0}
+                               "fused_cost_match": 0, "roi_align": 0,
+                               "fused_pool_cost_match_backward": 0,
+                               "roi_align_backward": 0}
 
 
 def _cost_problem(seed, B=2, M=8, N=64, P=256, D=64, m=3, n=20):
