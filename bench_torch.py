@@ -161,28 +161,38 @@ def ms_per_call(fn, iters: int, device, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms_per_call(fn, calls: int, device, warmup: int = 2):
-    """Mean device time per call of ``fn()``: every kernel, copy and fill
-    that torch.profiler's CUDA activity records over ``calls`` calls after
-    ``warmup``, summed (one stream, so they do not overlap). Unlike
-    ``ms_per_call`` it leaves out the host's gaps between launches. None on
-    the CPU."""
+def device_ms_by_kernel(fn, calls: int, warmup: int = 2) -> dict:
+    """Device ms per call of ``fn()`` on the card by kernel name: every
+    kernel, copy and fill that torch.profiler's CUDA activity records over
+    ``calls`` calls after ``warmup``. Raises where it records none."""
     import torch
-    if torch.device(device).type != "cuda":
-        return None
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
-    torch.cuda.synchronize(device)
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
             fn()
-        torch.cuda.synchronize(device)
-    us = sum(getattr(ev, "device_time_total", getattr(ev, "cuda_time_total", 0.0))
-             for ev in prof.key_averages())
-    if not us > 0:
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", getattr(ev, "cuda_time_total", 0.0))
+        if us > 0:
+            out[ev.key] = us / 1e3 / calls
+    if not out:
         raise RuntimeError("torch.profiler recorded no device time")
-    return us / 1e3 / calls
+    return out
+
+
+def device_ms_per_call(fn, calls: int, device, warmup: int = 2):
+    """Mean device time per call of ``fn()``: ``device_ms_by_kernel``
+    summed (one stream, so they do not overlap). Unlike ``ms_per_call`` it
+    leaves out the host's gaps between launches. None on the CPU."""
+    import torch
+    if torch.device(device).type != "cuda":
+        return None
+    with torch.cuda.device(device):
+        return sum(device_ms_by_kernel(fn, calls, warmup).values())
 
 
 def compact_inputs(cfg, B: int, K: int, device):

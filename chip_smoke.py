@@ -61,12 +61,13 @@ Phases, each fatal on failure:
      recomputed by tests/test_torch_port_ytvos.py), and one video on the
      card against the CPU;
   7. training: (7a) B1' (the fused matcher's autograd.Function: B1's
-     kernel forward, B1''s kernel backward and four products) at p5_train's
-     shapes and epsilon 0.03 and at p3's and p4's M, N at 0.05, X and all
-     five gradients against autograd through the plain version and the
-     explicit plain backward on the card, two backwards bit-equal, one
-     launch per backward, with the device ms of the backward, the old
-     route's (autograd through the plain version) and the bound; (7b) train_torch.py --preset p5_train --set
+     kernel forward, B1''s two kernels, the sweep and the tail, and four
+     products) at p5_train's shapes and epsilon 0.03 and at p3's and p4's
+     M, N at 0.05, X and all five gradients against autograd through the
+     plain version and the explicit plain backward on the card, two
+     backwards bit-equal, one counted launch per backward, with the device
+     ms of the backward and of each kernel, the old route's (autograd
+     through the plain version) and the bound; (7b) train_torch.py --preset p5_train --set
      matching.use_pallas=true at full width (R-50 256x448 bf16 backbone,
      M=8, N=64, B=4 clips of T=4, seeded random weights) on a DAVIS-layout
      tree written to a temporary directory, 6 steps with the counters set
@@ -90,8 +91,9 @@ Phases, each fatal on failure:
      kernel backward) on a 256x448 R-50-FPN pyramid at K=32 and K=128, both
      heads, forward and the four level gradients against autograd through
      the plain version and the explicit plain backward, two backwards
-     bit-equal, one launch per backward, device ms per backward beside the
-     old route's; (9b) train_proposal_torch.py at full width (R-50-FPN, 81
+     bit-equal, one counted launch per backward (its two kernels, the
+     per-box prep and the gather), device ms per backward and per kernel
+     beside the old route's; (9b) train_proposal_torch.py at full width (R-50-FPN, 81
      classes, 256x448, batch 2, 8 steps, seeded random weights) with B4 and
      B4' 2 x batch launches and B4' 2 x batch backward calls per step, every loss
      part finite, ms per step, peak memory, one profiled step, and the saved
@@ -513,12 +515,12 @@ def check_cost_match(name, shape, iters=30, timed=True):
             "bound_ms": b_ms, "bound_by": b_by}
 
 
-def detector_boxes(gen, K, H, W):
+def detector_boxes(gen, K, H, W, device="cuda"):
     """K boxes in image coordinates: most inside the image, an eighth under
     one pixel wide and high (under one cell at every level), an eighth
     crossing the left and bottom edges, and one covering the whole image."""
     import torch
-    dev = "cuda"
+    dev = device
     xy = torch.rand(K, 2, device=dev, generator=gen) * torch.tensor([W, H], device=dev)
     wh = 1 + torch.rand(K, 2, device=dev, generator=gen) * torch.tensor(
         [W, H], device=dev) * 0.6
@@ -563,11 +565,11 @@ def roi_compare(what, got, want):
     return err
 
 
-def pyramid(gen, C=256, image=(256, 448)):
+def pyramid(gen, C=256, image=(256, 448), device="cuda"):
     """Random FPN maps p2..p5 of an image, (C, ceil(H / 2**l), ceil(W / 2**l))."""
     import torch
     return [torch.randn(C, -(-image[0] // 2 ** l), -(-image[1] // 2 ** l),
-                        device="cuda", generator=gen) for l in (2, 3, 4, 5)]
+                        device=device, generator=gen) for l in (2, 3, 4, 5)]
 
 
 def check_multilevel(head, out_size, K=128, C=256, image=(256, 448), timed=True):
@@ -1639,8 +1641,9 @@ B1_BWD_CASES = (("p5", (4, 8, 64, 448, 256, 4096), 0.03),
 
 
 def b1_backward_check():
-    """Phase 7a: B1' (_PoolCostMatch.backward: one fused_pool_cost_match_
-    backward launch, then the four products as torch.bmm / baddbmm) at
+    """Phase 7a: B1' (_PoolCostMatch.backward: B1''s two kernels, the sweep
+    and the tail, counted as one fused_pool_cost_match_backward launch,
+    then the four products as torch.bmm / baddbmm) at
     p5_train's shapes (B=4, M=8, N=64, P=16x28, D=256, Pc=64x64) at epsilon
     0.03 (the smallest the training configurations use), and at p3's and
     p4's M, N at 0.05: X and all five gradients against autograd through
@@ -1716,15 +1719,21 @@ def b1_backward_check():
         explicit, _ = span_device_ms(
             lambda: None, lambda _: pool_cost_match_backward_plain(*args, gX, **kw),
             5, f"B1' explicit plain {case}")
-        kern = sum(v for k, v in per.items() if "matcher_backward_kernel" in k)
+        sweep = sum(v for k, v in per.items() if "matcher_sweep_kernel" in k)
+        tail = sum(v for k, v in per.items() if "matcher_tail_kernel" in k)
+        kern = sweep + tail
+        if sweep <= 0 or tail <= 0:
+            fail(f"B1' {case}: torch.profiler recorded no device time for the "
+                 f"sweep ({sweep}) or the tail ({tail})")
         # bound: the saved inputs and gX read once, the five gradients
         # written; operations: twice B1's (the reverse sweep and the four
         # products; the forward is not rerun)
         _, ops = matcher_bound(args, iters)
         byts = nbytes(*args, gX) + nbytes(*args[:5])
         b_ms, b_by = bound_ms(byts, 2 * ops)
-        log(f"B1' {case} time: backward {ms:.4f} ms on the device (kernel "
-            f"{kern:.4f}, the four products {ms - kern:.4f}: "
+        log(f"B1' {case} time: backward {ms:.4f} ms on the device (kernels "
+            f"{kern:.4f}: sweep {sweep:.4f}, tail {tail:.4f}; the four products "
+            f"{ms - kern:.4f}: "
             + ", ".join(f"{k[:40]} {v:.4f}" for k, v in per.items())
             + f"); old route (the plain forward again and its VJP) {plain:.4f} "
             f"ms; explicit plain backward {explicit:.4f} ms; bound {b_ms:.4f} ms "
@@ -1732,6 +1741,7 @@ def b1_backward_check():
         out[case] = {"max_abs_err": max(g_abs.values()), "x_err": x_err,
                      "grad_rel_err": g_err, "explicit_rel_err": e_err,
                      "bit_equal": bit_equal, "ms": ms, "kernel_ms": kern,
+                     "sweep_ms": sweep, "tail_ms": tail,
                      "products_ms": ms - kern, "plain_ms": plain,
                      "explicit_plain_ms": explicit, "bound_ms": b_ms,
                      "bound_by": b_by}
@@ -2014,7 +2024,8 @@ def proposal_train_steps(device):
 
 def b4_backward_check():
     """Phase 9a: B4' (multilevel_roi_align's autograd.Function: B4's kernel
-    forward, one roi_align_backward launch backward) at the full-width
+    forward, its two backward kernels, the prep and the gather, counted as
+    one roi_align_backward launch) at the full-width
     detector's shapes: a 256x448 R-50-FPN pyramid (C=256), K=32 proposals
     (train_proposal.py's post-NMS top-n) and K=128, both heads. The forward
     against the plain version (1e-4 + 1e-4 |want|), the four level
@@ -2076,9 +2087,14 @@ def b4_backward_check():
                 xs = leaves()
                 return multilevel_roi_align(xs, boxes, size, 2), xs
 
-            ms, _ = span_device_ms(kernel_forward,
-                                   lambda a: torch.autograd.grad(a[0], a[1], g),
-                                   20, f"B4' {name}")
+            ms, per = span_device_ms(kernel_forward,
+                                     lambda a: torch.autograd.grad(a[0], a[1], g),
+                                     20, f"B4' {name}")
+            prep = sum(v for k, v in per.items() if "roi_align_backward_prep_kernel" in k)
+            gather = sum(v for k, v in per.items() if "roi_align_backward_kernel<" in k)
+            if prep <= 0 or gather <= 0:
+                fail(f"B4' {name}: torch.profiler recorded no device time for the "
+                     f"prep ({prep}) or the gather ({gather})")
             plain, _ = span_device_ms(
                 leaves, lambda xs: torch.autograd.grad(
                     multilevel_roi_align_plain(xs, boxes, size, 2), xs, g),
@@ -2094,19 +2110,20 @@ def b4_backward_check():
             byts = nbytes(g, boxes, *levels)
             ops = 10 * K * 256 * size[0] * size[1] * 2 * 2
             b_ms, b_by = bound_ms(byts, ops)
-            log(f"B4' time, {name}: backward {ms:.4f} ms on the device (the "
-                f"kernel); old route (the plain version on all 4 levels again "
-                f"and its VJP) {plain:.4f} ms; explicit plain backward "
+            log(f"B4' time, {name}: backward {ms:.4f} ms on the device (prep "
+                f"{prep:.4f}, gather {gather:.4f}); old route (the plain version on "
+                f"all 4 levels again and its VJP) {plain:.4f} ms; explicit plain backward "
                 f"{explicit:.4f} ms; bound {b_ms:.4f} ms ({b_by}: "
                 f"{byts / 1e6:.2f} MB, {ops / 1e9:.3f} GFLOP)")
             out[(K, head)] = {"forward_max_abs_err": err, "max_abs_err": max(g_abs),
                               "grad_rel_err": max(g_err),
                               "explicit_rel_err": max(e_err), "bit_equal": bit_equal,
-                              "ms": ms, "plain_ms": plain, "explicit_plain_ms": explicit,
+                              "ms": ms, "prep_ms": prep, "gather_ms": gather,
+                              "plain_ms": plain, "explicit_plain_ms": explicit,
                               "bound_ms": b_ms, "bound_by": b_by}
     per_image = {k: out[(32, "box")][k] + out[(32, "mask")][k]
                  for k in ("ms", "plain_ms", "explicit_plain_ms", "bound_ms")}
-    log(f"B4' per train image (K=32, box + mask head, 2 launches): "
+    log(f"B4' per train image (K=32, box + mask head: 2 backward calls of 2 kernels): "
         f"{per_image['ms']:.4f} ms, old route {per_image['plain_ms']:.4f} ms, "
         f"explicit plain {per_image['explicit_plain_ms']:.4f} ms, bound "
         f"{per_image['bound_ms']:.4f} ms")
@@ -3482,7 +3499,12 @@ BENCH_TOOLS = {   # name -> (argv, environment)
     "bench_loader_torch": (["--files", "16", "--reps", "1"], {}),
     "bench_convmarginal_torch": ([], {"BENCH_REPS": "5", "BENCH_DEPTH": "3"}),
     "bench_objpack_torch": ([], {"BENCH_REPS": "5"}),
+    "bench_roi_align_torch": (["--backward", "--calls", "20"], {}),
 }
+# 12b tools run in a process of their own: their timer, torch.profiler,
+# has recorded no device time at all in this script's long process (after
+# its many earlier profiles), and the tool raises where it records none.
+BENCH_TOOLS_OWN_PROCESS = ("bench_roi_align_torch",)
 
 
 @contextlib.contextmanager
@@ -3546,8 +3568,9 @@ def bench_path(smi):
 
 def bench_tools_path():
     """Phase 12b: each bench/*_torch.py main(argv) once at BENCH_TOOLS'
-    setting on the card, its output to the log, its launches counted; the
-    breakdown's prefixes nest in device time (BREAKDOWN_NOISE_MS)."""
+    setting on the card (those of BENCH_TOOLS_OWN_PROCESS in a child
+    process), its output to the log, its launches counted; the breakdown's
+    prefixes nest in device time (BREAKDOWN_NOISE_MS)."""
     import io
     out = {}
     for name, (argv, env) in BENCH_TOOLS.items():
@@ -3555,11 +3578,13 @@ def bench_tools_path():
         buf = io.StringIO()
         reset_launch_counts()
         t0 = time.perf_counter()
-        with environ(env), contextlib.redirect_stdout(buf):
-            r = load_tool(name, "bench").main(argv)
+        if name in BENCH_TOOLS_OWN_PROCESS:
+            r, counts, text = tool_in_own_process(name, argv, env)
+        else:
+            with environ(env), contextlib.redirect_stdout(buf):
+                r = load_tool(name, "bench").main(argv)
+            counts, text = launch_counts(), buf.getvalue().strip()
         secs = time.perf_counter() - t0
-        counts = launch_counts()
-        text = buf.getvalue().strip()
         log(f"12b {name} {' '.join(argv)} {env} ({secs:.1f} s; launches {counts}):\n"
             + "\n".join(f"    {x}" for x in text.splitlines()[:24]))
         if name == "bench_breakdown_torch" and not all(
@@ -3572,6 +3597,25 @@ def bench_tools_path():
                 fail(f"12b {name}: a native number without the native loader")
         out[name] = {"result": r, "seconds": secs, "launches": counts}
     return out
+
+
+def tool_in_own_process(name, argv, env):
+    """bench/<name>.py's main(argv) in a child process on the card: its
+    result, its launch counts and its printout; fatal if it fails."""
+    import os
+    code = ("import json, chip_smoke\n"
+            "from dmm_net_tpu_torch.kernels import launch_counts, reset_launch_counts\n"
+            "reset_launch_counts()\n"
+            f"r = chip_smoke.load_tool({name!r}, 'bench').main({list(argv)!r})\n"
+            "print(json.dumps({'result': r, 'launches': launch_counts()}))\n")
+    with environ(env):
+        p = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                           text=True, timeout=600, env=dict(os.environ))
+    if p.returncode:
+        fail(f"12b {name} in its own process: exit {p.returncode}\n{p.stderr[-3000:]}")
+    *lines, last = p.stdout.strip().splitlines()
+    got = json.loads(last)
+    return got["result"], got["launches"], "\n".join(lines)
 
 
 def graft_entry_path():
@@ -3837,9 +3881,11 @@ def main() -> int:
                  "mesh_p5_train_2rank_10b_per_rank": mesh["p5"]["b1_backward_per_rank"],
                  "chain_dmm_11c":
                      chain["dmm"]["backward_calls"]["fused_pool_cost_match"]},
-             note="ms: the backward on the device, matcher_backward_kernel "
-                  "(kernel_ms) and the four products as torch.bmm / baddbmm "
-                  "(products_ms); plain_ms: the old route, autograd through "
+             note="ms: the backward on the device, matcher_sweep_kernel "
+                  "(sweep_ms) and matcher_tail_kernel (tail_ms), kernel_ms "
+                  "their sum, and the four products as torch.bmm / baddbmm "
+                  "(products_ms); launches count backward calls (two kernels "
+                  "each); plain_ms: the old route, autograd through "
                   "the plain version (its forward again and its VJP)",
              library_ms=None, cases={k: b1_bwd[k] for k in ("p3", "p4")},
              **b1_bwd["p5"]),
@@ -3859,9 +3905,11 @@ def main() -> int:
                  "learning_9d": learn_bwd, "dcn_9f": dcn_bwd,
                  "mesh_detector_10d_per_rank": mesh["detector"]["b4_backward_per_rank"],
                  "chain_detector_11c": chain["detector"]["backward_calls"]["roi_align"]},
-             note="ms: roi_align_backward_kernel on the device per train "
-                  "image; plain_ms: the old route, autograd through the "
-                  "plain version (all four levels again and their VJP)",
+             note="ms: roi_align_backward_prep_kernel and "
+                  "roi_align_backward_kernel on the device per train image; "
+                  "launches count backward calls (two kernels each); plain_ms: "
+                  "the old route, autograd through the plain version (all four "
+                  "levels again and their VJP)",
              library_ms=None,
              max_abs_err=max(r["max_abs_err"] for r in b4_bwd.values()),
              grad_rel_err=max(r["grad_rel_err"] for r in b4_bwd.values()),

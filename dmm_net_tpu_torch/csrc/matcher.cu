@@ -11,8 +11,8 @@
 // B3 replaces `_pallas_forward` / `_matcher_kernel` (public `fused_cost_match`,
 // same file): the features arrive pooled, so it skips the first launch.
 // B1', B1's backward, replaces the JAX package's `_fpcm_bwd` (same file, a
-// VJP of the jnp reference): one launch, matcher_backward_kernel (section 4),
-// on B1's scratch.
+// VJP of the jnp reference): two launches, matcher_sweep_kernel and
+// matcher_tail_kernel (section 4), on B1's scratch and what its forward kept.
 //
 // Three launches on the caller's stream (B3: the last two), all float32 on
 // FFMA (the reference pins Precision.HIGHEST):
@@ -40,7 +40,10 @@
 // 512 threads over 128 columns; at most 512 threads a block for N > 256,
 // whose builds need ~70 registers a thread); each reduction is a warp
 // shuffle, with two barriers per iteration.  When an input needs a gradient
-// the kernel's KEEP build also writes each pass's duals for B1'.  The log-sum-exps run in base 2 with log2(e) / eps
+// the kernel's KEEP build also writes each pass's duals, C, the
+// intersections and the mask areas for B1'.  The pooling launch keeps the
+// masks' areas and the cost launch the cosine's inverse norms in the scratch
+// for it too.  The log-sum-exps run in base 2 with log2(e) / eps
 // folded into one scale per iteration (no division in the inner loops), on
 // the hardware's ex2 / lg2; a padded pair carries a cost of 1e30, so it
 // drops out of every max and sum without a branch.  The rounding points
@@ -56,11 +59,14 @@
 // latency chain (two barriers, two warp reductions and the exponentials
 // per iteration) that does not shrink with the batch.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include <algorithm>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -155,6 +161,7 @@ __global__ void __launch_bounds__(THREADS)
 matcher_pool_kernel(const float* __restrict__ emb,          // (B, P, D)
             const float* __restrict__ pmask_pool,   // (B, N, P)
             float* __restrict__ pf,                 // (B, N, D)
+            float* __restrict__ area_out,           // (B, N): the mask areas for B1', or null
             int N, int P, int D) {
   extern __shared__ __align__(16) float smem[];
   // two stages of (PN mask rows, then PT embedding rows), row stride LDT
@@ -203,6 +210,7 @@ matcher_pool_kernel(const float* __restrict__ emb,          // (B, P, D)
     __syncthreads();
   }
   if (i < nrow) {
+    if (area_out && blockIdx.y == 0 && dq == 0) area_out[(size_t)b * N + n0 + i] = area;
     const float den = nan_max(area, 1e-6f);
     float* o = pf + ((size_t)b * N + n0 + i) * D + d0;
 #pragma unroll
@@ -276,7 +284,9 @@ __device__ __forceinline__ void pair_sums(const float* A, int lda, int M, const 
 //   y < S:  intersections and mask areas over pixels [y * chunk, (y+1) * chunk)
 //           -> inter_part (B, S, M, N), at_part (B, S, M) (blocks x == 0),
 //              ap_part (B, S, N)
-//   y == S: cosine over D -> cos (B, M, N)
+//   y == S: cosine over D -> cos (B, M, N), and the inverse norms the cosine
+//           used, rt (B, M) (blocks x == 0) and rp (B, N), for B1' (where
+//           rt_out and rp_out are not null)
 template <int R>
 __global__ void __launch_bounds__(THREADS)
 matcher_cost_kernel(const float* __restrict__ tm,   // (B, M, Pc)
@@ -285,6 +295,7 @@ matcher_cost_kernel(const float* __restrict__ tm,   // (B, M, Pc)
                     const float* __restrict__ pf,   // (B, N, D)
                     float* __restrict__ cos_out, float* __restrict__ inter_part,
                     float* __restrict__ at_part, float* __restrict__ ap_part,
+                    float* __restrict__ rt_out, float* __restrict__ rp_out,
                     int M, int N, int Pc, int D, int S, int chunk) {
   extern __shared__ __align__(16) float smem[];
   const int b = blockIdx.z, y = blockIdx.y, n0 = blockIdx.x * NT;
@@ -304,6 +315,14 @@ matcher_cost_kernel(const float* __restrict__ tm,   // (B, M, Pc)
         const int m = g + MG * r;
         if (m < M)
           cos_out[((size_t)b * M + m) * N + n0 + i] = dot[r] * rsqrtf(ra[r] + 1e-12f) * pn;
+      }
+      if (rp_out && g == 0) rp_out[(size_t)b * N + n0 + i] = pn;
+    }
+    if (rt_out && blockIdx.x == 0 && i == 0) {
+#pragma unroll
+      for (int r = 0; r < R; ++r) {
+        const int m = g + MG * r;
+        if (m < M) rt_out[(size_t)b * M + m] = rsqrtf(ra[r] + 1e-12f);
       }
     }
     return;
@@ -341,13 +360,13 @@ cudaError_t set_smem(const void* fn, size_t bytes) {
 
 template <int R>
 int launch_cost(const float* tm, const float* pm, const float* tf, const float* pf,
-                float* cosv, float* inter, float* at, float* ap, int B, int M, int N, int Pc,
-                int D, int S, int chunk, cudaStream_t st) {
+                float* cosv, float* inter, float* at, float* ap, float* rt, float* rp, int B,
+                int M, int N, int Pc, int D, int S, int chunk, cudaStream_t st) {
   const size_t smem = sizeof(float) * 2 * (size_t)(M + NT) * LDT;
   cudaError_t err = set_smem(reinterpret_cast<const void*>(matcher_cost_kernel<R>), smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   matcher_cost_kernel<R><<<dim3((N + NT - 1) / NT, S + 1, B), THREADS, smem, st>>>(
-      tm, pm, tf, pf, cosv, inter, at, ap, M, N, Pc, D, S, chunk);
+      tm, pm, tf, pf, cosv, inter, at, ap, rt, rp, M, N, Pc, D, S, chunk);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -399,9 +418,21 @@ __device__ __forceinline__ Sink sink_layout(float* smem, int M, int N, int ldc) 
   return s;
 }
 
+// What B1''s forward keeps of its cost for B1' (KEEP builds), each batch
+// element's part: C as built (PAD_COST on padded pairs), the intersections
+// and both mask areas summed over the slices.
+struct Kept {
+  float* c;       // M x N
+  float* inter;   // M x N
+  float* at;      // M
+  float* ap;      // N
+};
+
 // The areas and the validity from the cost phase's partial sums (added in
-// slice order), f = g = 0, then C.
-__device__ __forceinline__ void build_cost(const Sink& s, const float* __restrict__ cos_in,
+// slice order), f = g = 0, then C; KEEP builds also write them to `kept`.
+template <bool KEEP>
+__device__ __forceinline__ void build_cost(const Sink& s, const Kept& kept,
+                                           const float* __restrict__ cos_in,
                                            const float* __restrict__ inter_part,
                                            const float* __restrict__ at_part,
                                            const float* __restrict__ ap_part,
@@ -413,6 +444,7 @@ __device__ __forceinline__ void build_cost(const Sink& s, const float* __restric
     float a = 0.f;
     for (int y = 0; y < S; ++y) a += at_part[((size_t)b * S + y) * M + m];
     s.at[m] = a;
+    if constexpr (KEEP) kept.at[m] = a;
     s.rv[m] = rm[(size_t)b * M + m] > 0.5f ? 1.f : 0.f;
     s.f[m] = 0.f;
   }
@@ -420,6 +452,7 @@ __device__ __forceinline__ void build_cost(const Sink& s, const float* __restric
     float a = 0.f;
     for (int y = 0; y < S; ++y) a += ap_part[((size_t)b * S + y) * N + n];
     s.ap[n] = a;
+    if constexpr (KEEP) kept.ap[n] = a;
     s.cv[n] = cm[(size_t)b * N + n] > 0.5f ? 1.f : 0.f;
     s.g[n] = 0.f;
   }
@@ -433,8 +466,23 @@ __device__ __forceinline__ void build_cost(const Sink& s, const float* __restric
     const float c = iou_weight * (1.f - iou) +
                     (1.f - iou_weight) * (1.f - cos_in[(size_t)b * M * N + e]);
     s.c[m * ldc + n] = (s.rv[m] > 0.5f && s.cv[n] > 0.5f) ? c : PAD_COST;
+    if constexpr (KEEP) {
+      kept.c[e] = s.c[m * ldc + n];
+      kept.inter[e] = inter;
+    }
   }
   __syncthreads();
+}
+
+// Batch element b's Kept parts in a kept buffer of B elements.
+__host__ __device__ __forceinline__ Kept kept_parts(float* kept, int b, int B, int M, int N,
+                                                     int iters) {
+  float* c = kept + (size_t)B * (iters + 1) * (M + N);
+  float* inter = c + (size_t)B * M * N;
+  float* at = inter + (size_t)B * M * N;
+  float* ap = at + (size_t)B * M;
+  const size_t mn = (size_t)b * M * N;
+  return Kept{c + mn, inter + mn, at + (size_t)b * M, ap + (size_t)b * N};
 }
 
 __device__ __forceinline__ float sched_eps(int k, float epsilon, int anneal, float epsilon_init,
@@ -443,9 +491,11 @@ __device__ __forceinline__ float sched_eps(int k, float epsilon, int anneal, flo
 }
 
 // NPL: columns per lane in the row pass (N <= 32 * NPL), held in registers.
-// KEEP: also write the duals' history for B1' to hist, (B, iters + 1, M + N):
-// F[k] (f after row pass k; F[iters] the final one) at k * (M + N), H[k + 1]
-// (column pass k's value before its cap) at (k + 1) * (M + N) + M.
+// KEEP: also write what B1' reads to hist (kept_floats): first the duals'
+// history, (B, iters + 1, M + N): F[k] (f after row pass k; F[iters] the
+// final one) at k * (M + N), H[k + 1] (column pass k's value before its cap)
+// at (k + 1) * (M + N) + M; then the cost's Kept parts, (B, M, N) C, (B, M,
+// N) intersections, (B, M) and (B, N) mask areas.
 template <int NPL, bool KEEP>
 __global__ void matcher_sinkhorn_kernel(const float* __restrict__ cos_in,      // (B, M, N)
                                         const float* __restrict__ inter_part,  // (B, S, M, N)
@@ -465,7 +515,10 @@ __global__ void matcher_sinkhorn_kernel(const float* __restrict__ cos_in,      /
   const int lane = tid & 31, warp = tid >> 5, nwarps = T >> 5;
   const int MN = M + N;
   float* h_b = hist + (KEEP ? (size_t)b * (iters + 1) * MN : 0);
-  build_cost(s, cos_in, inter_part, at_part, ap_part, rm, cm, b, M, N, S, ldc, iou_weight);
+  Kept kept{};
+  if constexpr (KEEP) kept = kept_parts(hist, b, gridDim.x, M, N, iters);
+  build_cost<KEEP>(s, kept, cos_in, inter_part, at_part, ap_part, rm, cm, b, M, N, S, ldc,
+                   iou_weight);
 
   // f[m] = valid_row ? -eps * lse_n((g - C) / eps) : 0, one warp per row,
   // lane l holding columns l, l + 32, ...
@@ -568,326 +621,408 @@ int launch_sinkhorn(const float* cosv, const float* inter, const float* at, cons
 // ---- 4. the backward (B1') -------------------------------------------------
 // The exact gradient of B1's X with respect to emb, both pooling and cost
 // masks and the template features, for an upstream gradient gX: the reverse
-// of the unrolled Sinkhorn, then the cost's tail (IoU and cosine).  One block
-// per batch element, on the forward's scratch (pf, the cosine, the slices'
-// partial sums) and the duals its Sinkhorn kept (both kept by the wrapper
-// from its forward call), one warp per row and G lanes per column as the
-// forward's Sinkhorn, up to 1024 threads (64 registers a thread):
-//   1. C again (build_cost), and the duals the forward kept (hist): F[k] (f
-//      after row pass k; F[iters] the final one) and H[k] (column pass
-//      k - 1's value before the cap at 0), (iters + 1) * (M + N) floats,
-//      copied to shared memory where they fit.  So the duals, and the X
-//      they give, are the ones the forward returned.
-//   2. The reverse sweep.  Every dual enters the Sinkhorn as f + g - C, so
-//      each step's increment of dC[m, n] is minus its increment of dg[n] and
-//      of df[m]: a row pass adds dh[n] * Q[m, n] (Q the column pass's
-//      weights, dh = dg where the cap let h through) and sums df, a column
-//      pass adds df[m] * P[m, n] (P the row pass's weights) and sums dg.
-//      P = exp((g - C + f) / eps) and Q = exp((f - C + h) / eps) come from
-//      the kept duals, as ex2 in base 2.  dC stays in shared memory where it
-//      fits beside C, else in a global scratch of B * M * N floats.
-//   3. The tail: for each pair, dIoU and dcos from dC; coef = dinter - dunion
-//      and the union's row and column sums for the two mask products, which
-//      the wrapper runs (torch.bmm: (B, M, N) x (B, N, Pc) and its
-//      transpose); the cosine's gradients through rsqrt(|t|^2 + 1e-12) for
-//      tf (d_tf, final) and pf, and pf's through the pooling denominator
-//      max(area, 1e-6) (d_pooled and d_area, for the wrapper's products with
-//      emb and the pooling masks).
+// of the unrolled Sinkhorn, then the cost's tail (IoU and cosine).  Two
+// launches on what B1's forward kept when an input needed a gradient (the
+// scratch: pf, the cosine's inverse norms, the pooling masks' areas; the
+// kept buffer: the Sinkhorn's duals F[k] and H[k], C as built, the
+// intersections and both mask areas summed over the slices), so nothing of
+// the forward is computed again:
+//   4. matcher_sweep_kernel, the reverse sweep -> dC (B, M, N).  Every dual
+//      enters the Sinkhorn as f + g - C, so each step's increment of dC[m, n]
+//      is minus its increment of dg[n] and of df[m]: a row pass adds
+//      dh[n] * Q[m, n] (Q the column pass's weights, dh = dg where the cap
+//      let h through) and sums df, a column pass adds df[m] * P[m, n] (P the
+//      row pass's weights) and sums dg; P and Q come from the kept duals, as
+//      ex2 in base 2.  The launch is sized to the pairs: a batch element
+//      takes as many warps as own its columns (a cluster of `cluster` blocks
+//      of them where one block cannot hold its pairs), and a thread owns one
+//      whole column with all its rows' C and dC in registers.  A column's sum
+//      stays inside its thread; a row's sum is a reduce-scatter over the
+//      warp's shuffles and, across warps, one barrier of the element's own
+//      group (its block's, or its cluster's with the warps' partial sums
+//      read through distributed shared memory), added in a fixed order.
+//      The duals' history is staged in shared memory, so the 2 x iters + 2
+//      dependent passes read no device memory.  At p5 (8 x 64 pairs) two
+//      warps hold an element, 8 pairs a thread.
+//   5. matcher_tail_kernel, the cost's tail, blocks of four template rows or
+//      four proposals of each element, across the card: per pair dIoU and
+//      dcos from dC; coef = dinter - dunion and the union's row and column
+//      sums for the two mask products, which the wrapper runs (torch.bmm:
+//      (B, M, N) x (B, N, Pc) and its transpose); the cosine's gradients
+//      through the forward's inverse norms for tf (d_tf, final) and pf, and
+//      pf's through the pooling denominator max(area, 1e-6) (d_pooled and
+//      d_area, for the wrapper's products with emb and the pooling masks).
+//      Each feature row a block loads serves its four rows.
 // Rounding points as the plain version's autograd: padded pairs take no
 // gradient, none above the clip at 30, none through a column whose cap bound,
 // none through the union or the denominator where their clamp at 1e-6 bound;
-// a NaN travels on, as through autograd.  The bound: latency, as the
-// forward's Sinkhorn (2 x 31 dependent passes a block, each a warp reduction
-// and a barrier); its bytes (the saved inputs, gX, the outputs) are a few
-// microseconds of the card's memory rate.
-template <int NPL>
-__global__ void __launch_bounds__(1024) matcher_backward_kernel(
-    const float* __restrict__ cos_in, const float* __restrict__ inter_part,
-    const float* __restrict__ at_part, const float* __restrict__ ap_part,
-    const float* __restrict__ pf,          // (B, N, D) the forward's pooled features
-    const float* __restrict__ pmask_pool,  // (B, N, P)
-    const float* __restrict__ tf,          // (B, M, D)
-    const float* __restrict__ rm, const float* __restrict__ cm,
-    const float* __restrict__ gX,          // (B, M, N)
-    const float* hist_g,                   // (B, iters + 1, M + N): the forward's duals
-    float* dc_g,                           // (B, M, N), unless in shared memory
-    float* __restrict__ coef,              // (B, M, N): d inter - d union
-    float* __restrict__ urow,              // (B, M): d union summed over proposals
-    float* __restrict__ ucol,              // (B, N): over templates
-    float* __restrict__ d_tf,              // (B, M, D)
-    float* __restrict__ d_pooled,          // (B, N, D): d pf / max(area, 1e-6)
-    float* __restrict__ d_area,            // (B, N)
-    int M, int N, int S, int P, int D, int ldc, int G, float iou_weight, float epsilon,
-    int iters, int anneal, float epsilon_init, float log_decay, int dc_shared,
-    int hist_shared) {
-  extern __shared__ float smem[];
-  const Sink s = sink_layout(smem, M, N, ldc);
-  float* s_df = s.ap + N;      // M
-  float* s_dg = s_df + M;      // N
-  float* s_rt = s_dg + N;      // M: 1 / |tf|
-  float* s_rp = s_rt + M;      // N: 1 / |pf|
-  float* s_area = s_rp + N;    // N: pooling mask areas
-  float* s_tail = s_area + N;
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x, T = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5, nwarps = T >> 5;
-  const int MN = M + N;
-  float* dC = dc_shared ? s_tail : dc_g + (size_t)b * M * N;
-  const int ldd = dc_shared ? ldc : N;
-  const float* hist_b = hist_g + (size_t)b * (iters + 1) * MN;
-  float* hist = hist_shared ? s_tail + (dc_shared ? (size_t)M * ldc : 0)
-                            : const_cast<float*>(hist_b);
+// a NaN travels on, as through autograd.  Every sum is taken in a fixed
+// order, so two backwards give the same bits.
+//
+// What bounds it on an H100: the sweep is a latency chain of 2 x iters + 2
+// dependent passes per element, each its pairs' exponentials and a row
+// reduction (shuffles, and a barrier where warps share an element); its
+// ~0.6 us a step at p5 are its two warps running their instructions in
+// order, not the card's rates.  The tail's bytes (pf, tf, the kept pairs, the outputs) are
+// a few microseconds of the card's memory rate at most.
 
-  // 1. C, the forward's duals (into shared memory where they fit), and the
-  // final f and g
-  build_cost(s, cos_in, inter_part, at_part, ap_part, rm, cm, b, M, N, S, ldc, iou_weight);
-  if (hist_shared)
-    for (int e = tid; e < (iters + 1) * MN; e += T) hist[e] = hist_b[e];
-  __syncthreads();
-  for (int m = tid; m < M; m += T) s.f[m] = hist[(size_t)iters * MN + m];
-  for (int n = tid; n < N; n += T)
-    s.g[n] = (iters == 0 || s.cv[n] <= 0.5f) ? 0.f
-                                             : nan_min(hist[(size_t)iters * MN + M + n], 0.f);
-  __syncthreads();
+// The most threads a sweep block of row capacity R takes: each holds C and
+// dC of R pairs in registers.
+__host__ __device__ constexpr int sweep_max_threads(int R) {
+  return R <= 8 ? 1024 : R <= 16 ? 512 : 256;
+}
 
-  // 2. the reverse sweep.  X = exp(min(L, 30)), L = (f + g - C) / epsilon on
-  // valid pairs, so dL = gX * X where L <= 30, and C's increment is
-  // -dL / epsilon; f's gradient is minus the row's sum
-  const float* gX_b = gX + (size_t)b * M * N;
-  for (int m = warp; m < M; m += nwarps) {
-    float rs = 0.f;
-    for (int n = lane; n < N; n += 32) {
-      float inc = 0.f;
-      if (s.rv[m] > 0.5f && s.cv[n] > 0.5f) {
-        const float L = (s.f[m] + s.g[n] - s.c[m * ldc + n]) / epsilon;
-        const float x = expf(nan_min(L, 30.f));
-        if (L <= 30.f) inc = -(gX_b[(size_t)m * N + n] * x) / epsilon;
-      }
-      dC[m * ldd + n] = inc;
-      rs += inc;
-    }
-    rs = warp_sum(rs);
-    if (lane == 0) s_df[m] = s.rv[m] > 0.5f ? -rs : 0.f;
-  }
-  __syncthreads();
+constexpr size_t SWEEP_HIST_BYTES = 96 * 1024;   // the duals' history in shared memory, at most
 
-  const int cols_per_pass = T / G, q = tid % G;
-  // column pass of step j: P from (F[j], g_j) at eps; dC += df[m] * P and
-  // dg[n] = -(the column's increments, with dC's old entries when with_old:
-  // the final step's g also met X directly)
-  auto p_pass = [&](int j, float eps, bool with_old) {
-    const float* f = hist + (size_t)j * MN;
-    const float* hj = hist + (size_t)j * MN + M;
-    const float sc = LOG2E / eps;
-    for (int n0 = 0; n0 < N; n0 += cols_per_pass) {
-      const int n = n0 + tid / G;
-      const int nn = min(n, N - 1);          // lanes past N compute a copy, unused
-      const float gn = (j == 0 || s.cv[nn] <= 0.5f) ? 0.f : nan_min(hj[nn], 0.f);
-      float part = 0.f;
-      for (int m = q; m < M; m += G) {
-        float inc = 0.f;
-        if (s.rv[m] > 0.5f && s.cv[nn] > 0.5f)
-          inc = s_df[m] * ex2((gn - s.c[m * ldc + nn] + f[m]) * sc);
-        float* d = dC + m * ldd + nn;
-        if (with_old) part += *d;
-        if (n < N) *d += inc;
-        part += inc;
-      }
-      for (int o = G >> 1; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
-      if (q == 0 && n < N) s_dg[n] = -part;
-    }
-  };
-  // row pass of step j: the column pass's weights Q from (F[j], H[j + 1]);
-  // dC += dh[n] * Q with dh = dg where h <= 0 (the cap let it through);
-  // df[m] = -(the row's increments) on valid rows
-  auto q_pass = [&](int j, float eps) {
-    const float* f = hist + (size_t)j * MN;
-    const float* h = hist + (size_t)(j + 1) * MN + M;
-    const float sc = LOG2E / eps;
-    for (int m = warp; m < M; m += nwarps) {
-      float rs = 0.f;
-      for (int n = lane; n < N; n += 32) {
-        float inc = 0.f;
-        if (s.rv[m] > 0.5f && s.cv[n] > 0.5f) {
-          const float hn = h[n];
-          const float dh = hn <= 0.f ? s_dg[n] : 0.f;
-          inc = dh * ex2((f[m] - s.c[m * ldc + n] + hn) * sc);
-        }
-        dC[m * ldd + n] += inc;
-        rs += inc;
-      }
-      rs = warp_sum(rs);
-      if (lane == 0) s_df[m] = s.rv[m] > 0.5f ? -rs : 0.f;
-    }
-  };
-  p_pass(iters, epsilon, true);
-  __syncthreads();
-  for (int j = iters - 1; j >= 0; --j) {
-    const float eps = sched_eps(j, epsilon, anneal, epsilon_init, log_decay);
-    q_pass(j, eps);
-    __syncthreads();
-    p_pass(j, eps, false);
-    __syncthreads();
-  }
-
-  // 3. the tail.  Per pair: C = lam (1 - iou) + (1 - lam)(1 - cos), iou =
-  // inter / max(union, 1e-6); d union (kept in C's place for the sums), coef,
-  // and dcos in dC's place
-  for (int e = tid; e < M * N; e += T) {
-    const int m = e / N, n = e % N;
-    float inter = 0.f;
-    for (int y = 0; y < S; ++y) inter += inter_part[((size_t)b * S + y) * M * N + e];
-    const float uni = s.at[m] + s.ap[n] - inter;
-    const float U = nan_max(uni, 1e-6f);
-    const float dc = dC[m * ldd + n];
-    const float d_iou = -(iou_weight * dc);
-    const float du = uni >= 1e-6f ? -d_iou * ((inter / U) / U) : 0.f;
-    coef[(size_t)b * M * N + e] = d_iou / U - du;
-    s.c[m * ldc + n] = du;
-    dC[m * ldd + n] = -((1.f - iou_weight) * dc);
-  }
-  __syncthreads();
-
-  const float* tf_b = tf + (size_t)b * M * D;
-  const float* pf_b = pf + (size_t)b * N * D;
-  const float* pm_b = pmask_pool + (size_t)b * N * P;
-  for (int m = warp; m < M; m += nwarps) {
-    float u = 0.f, ss = 0.f;
-    for (int n = lane; n < N; n += 32) u += s.c[m * ldc + n];
-    for (int d = lane; d < D; d += 32) ss = fmaf(tf_b[(size_t)m * D + d], tf_b[(size_t)m * D + d], ss);
-    u = warp_sum(u);
-    ss = warp_sum(ss);
-    if (lane == 0) {
-      urow[(size_t)b * M + m] = u;
-      s_rt[m] = rsqrtf(ss + 1e-12f);
-    }
-  }
-  for (int n = warp; n < N; n += nwarps) {
-    float u = 0.f, ss = 0.f, a = 0.f;
-    for (int m = lane; m < M; m += 32) u += s.c[m * ldc + n];
-    for (int d = lane; d < D; d += 32) ss = fmaf(pf_b[(size_t)n * D + d], pf_b[(size_t)n * D + d], ss);
-    for (int p = lane; p < P; p += 32) a += pm_b[(size_t)n * P + p];
-    u = warp_sum(u);
-    ss = warp_sum(ss);
-    a = warp_sum(a);
-    if (lane == 0) {
-      ucol[(size_t)b * N + n] = u;
-      s_rp[n] = rsqrtf(ss + 1e-12f);
-      s_area[n] = a;
-    }
-  }
-  __syncthreads();
-
-  // d_tf = rt * dtn - rt^3 (dtn . tf) tf with dtn = dcos @ (pf * rp), one
-  // warp per template row, lanes over the feature dims, DPL of them a lane
-  // at a time so that their loads are in flight together (dtn parked in d_tf)
-  float* dtf_b = d_tf + (size_t)b * M * D;
-  for (int m = warp; m < M; m += nwarps) {
-    float dot = 0.f;
-    for (int d0 = lane; d0 < D; d0 += 32 * DPL) {
-      float acc[DPL];
+// A warp's reduce-scatter of R row sums, one value a row per lane: after it
+// lane l holds the warp's sum of rows l * R / 32 + i, i < max(R / 32, 1)
+// (for R < 32 the 32 / R lanes of a row hold the same value).  Halving steps
+// while a lane holds more than one row, then whole xor steps; the order of
+// every addition is fixed.
+template <int R, int O>
+__device__ __forceinline__ void reduce_scatter(float (&v)[R], int lane) {
+  if constexpr (O >= 1) {
+    constexpr int h = R * O / 32;
+    if constexpr (h >= 1) {
+      const bool up = lane & O;
 #pragma unroll
-      for (int i = 0; i < DPL; ++i) acc[i] = 0.f;
-#pragma unroll 2
-      for (int n = 0; n < N; ++n) {
-        const float w = dC[m * ldd + n] * s_rp[n];
-        const float* prow = pf_b + (size_t)n * D + d0;
-#pragma unroll
-        for (int i = 0; i < DPL; ++i)
-          if (d0 + 32 * i < D) acc[i] = fmaf(w, prow[32 * i], acc[i]);
+      for (int i = 0; i < h; ++i) {
+        const float send = up ? v[i] : v[i + h];
+        const float keep = up ? v[i + h] : v[i];
+        v[i] = keep + __shfl_xor_sync(0xffffffffu, send, O);
       }
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) {
-        const int d = d0 + 32 * i;
-        if (d < D) {
-          dtf_b[(size_t)m * D + d] = acc[i];
-          dot = fmaf(acc[i], tf_b[(size_t)m * D + d], dot);
-        }
-      }
+    } else {
+      v[0] += __shfl_xor_sync(0xffffffffu, v[0], O);
     }
-    dot = warp_sum(dot);
-    const float r = s_rt[m], r3 = r * r * r;
-    for (int d = lane; d < D; d += 32) {
-      const size_t i = (size_t)m * D + d;
-      dtf_b[i] = r * dtf_b[i] - r3 * dot * tf_b[i];
-    }
-  }
-  // d pf likewise from dpn = dcos^T @ (tf * rt), one warp per proposal; then
-  // d_pooled = d pf / den and d_area = -sum(d pf * pf) / den where area >= 1e-6
-  float* dpo_b = d_pooled + (size_t)b * N * D;
-  for (int n = warp; n < N; n += nwarps) {
-    float dot = 0.f;
-    for (int d0 = lane; d0 < D; d0 += 32 * DPL) {
-      float acc[DPL];
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) acc[i] = 0.f;
-#pragma unroll 2
-      for (int m = 0; m < M; ++m) {
-        const float w = dC[m * ldd + n] * s_rt[m];
-        const float* trow = tf_b + (size_t)m * D + d0;
-#pragma unroll
-        for (int i = 0; i < DPL; ++i)
-          if (d0 + 32 * i < D) acc[i] = fmaf(w, trow[32 * i], acc[i]);
-      }
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) {
-        const int d = d0 + 32 * i;
-        if (d < D) {
-          dpo_b[(size_t)n * D + d] = acc[i];
-          dot = fmaf(acc[i], pf_b[(size_t)n * D + d], dot);
-        }
-      }
-    }
-    dot = warp_sum(dot);
-    const float r = s_rp[n], r3 = r * r * r;
-    const float area = s_area[n], den = nan_max(area, 1e-6f);
-    float dd = 0.f;
-    for (int d = lane; d < D; d += 32) {
-      const size_t i = (size_t)n * D + d;
-      const float dpf = r * dpo_b[i] - r3 * dot * pf_b[i];
-      dpo_b[i] = dpf / den;
-      dd = fmaf(dpf, pf_b[i], dd);
-    }
-    dd = warp_sum(dd);
-    if (lane == 0) d_area[(size_t)b * N + n] = area >= 1e-6f ? -dd / den : 0.f;
+    reduce_scatter<R, O / 2>(v, lane);
   }
 }
 
-template <int NPL>
-int launch_backward(const float* cosv, const float* inter, const float* at, const float* ap,
-                    const float* pf, const float* pmask_pool, const float* tf, const float* rm,
-                    const float* cm, const float* gX, const float* hist, float* dC, float* coef,
-                    float* urow, float* ucol, float* d_tf, float* d_pooled, float* d_area,
-                    int B, int M, int N, int S, int P, int D, float iou_weight, float epsilon,
-                    int iters, int anneal, float epsilon_init, float log_decay,
-                    cudaStream_t st) {
-  int T, G, ldc;
-  sink_geometry(M, N, 1024, &T, &G, &ldc);
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  // C and the row / column values, then dC and the history where they fit
-  size_t floats = (size_t)M * ldc + 5 * (size_t)M + 6 * (size_t)N;
-  int dc_shared = 0, hist_shared = 0;
-  if (sizeof(float) * (floats + (size_t)M * ldc) <= (size_t)optin) {
-    floats += (size_t)M * ldc;
-    dc_shared = 1;
+// R: row capacity (M <= R, a power of two >= 8); thread tid of rank `rank`
+// owns column n = rank * T + tid (a warp's loads of a row are contiguous);
+// GROUP: more than one warp holds an element (warps x cluster > 1).  Block
+// x = b * cluster + rank.  Shared memory: the warps' row sums and each
+// warp's copy of df, both by the parity of the step (so one barrier a step
+// suffices), the steps' scales log2(e) / eps, then `chunk` rows of the
+// duals' history, row k as F[k] (M) and H[k] of the block's T columns,
+// copied in with cp.async before the steps that read them: the steps read
+// no device memory.  Every pass computes all its pairs' terms and selects
+// the valid ones: no branch (and no reconvergence) sits in the chain of
+// dependent sums.
+template <int R, bool GROUP>
+__global__ void __launch_bounds__(sweep_max_threads(R))
+matcher_sweep_kernel(const float* __restrict__ hist,   // (B, iters + 1, M + N): F, H
+                     const float* __restrict__ kc,     // (B, M, N): C as the forward built it
+                     const float* __restrict__ rm, const float* __restrict__ cm,
+                     const float* __restrict__ gX,     // (B, M, N)
+                     float* __restrict__ dC_out,       // (B, M, N)
+                     int M, int N, int cluster, float epsilon, int iters, int anneal,
+                     float epsilon_init, float log_decay, int chunk) {
+  extern __shared__ __align__(16) float smem[];
+  constexpr int KR = R >= 32 ? R / 32 : 1;       // rows a lane holds after the reduce-scatter
+  constexpr int LPR = R >= 32 ? 1 : 32 / R;      // lanes that hold a row (R < 32)
+  const int T = blockDim.x, W = T >> 5;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int b = blockIdx.x / cluster, rank = blockIdx.x % cluster;
+  const int MN = M + N, hw = M + T;
+  const int row0 = R >= 32 ? lane * KR : lane / LPR;
+  const bool writer = lane % LPR == 0;
+  float* s_part = smem;                          // [2][W][R]
+  float* s_df = s_part + 2 * W * R;              // [2][W][R]
+  float* s_sc = s_df + 2 * W * R;                // [iters + 1], padded to 4
+  float* s_hist = s_sc + ((iters + 4) & ~3);     // [chunk][hw]
+  const float* hist_b = hist + (size_t)b * (iters + 1) * MN;
+  const int n = rank * T + tid;
+  const bool cv = n < N && cm[(size_t)b * N + n] > 0.5f;
+  // history rows [first, last] into shared memory (the caller syncs)
+  int lo = 0;
+  auto load_rows = [&](int first, int last) {
+    lo = first;
+    for (int r = 0; r <= last - first; ++r) {
+      const float* src = hist_b + (size_t)(first + r) * MN;
+      float* dst = s_hist + r * hw;
+      for (int i = tid; i < M; i += T) cp_async4(dst + i, src + i);
+      if (n < N) cp_async4(dst + M + tid, src + M + n);
+      else dst[M + tid] = 0.f;
+    }
+    cp_async_commit();
+  };
+  load_rows(max(0, iters + 1 - chunk), iters);
+  for (int k = tid; k < iters; k += T)
+    s_sc[k] = LOG2E / sched_eps(k, epsilon, anneal, epsilon_init, log_decay);
+
+  // the valid rows (bit m), C and gX of this thread's column in registers
+  const unsigned lo_rows = __ballot_sync(0xffffffffu, lane < M && rm[(size_t)b * M + lane] > 0.5f);
+  const unsigned hi_rows =
+      __ballot_sync(0xffffffffu, lane + 32 < M && rm[(size_t)b * M + lane + 32] > 0.5f);
+  const unsigned long long rows = lo_rows | (unsigned long long)hi_rows << 32;
+  const float* kc_b = kc + (size_t)b * M * N;
+  const float* gX_b = gX + (size_t)b * M * N;
+  float c[R], d[R], v[R];
+#pragma unroll
+  for (int m = 0; m < R; ++m) {
+    const bool in = m < M && n < N;
+    c[m] = in ? kc_b[(size_t)m * N + n] : 0.f;
+    d[m] = in ? gX_b[(size_t)m * N + n] : 0.f;
   }
-  const size_t hist_floats = (size_t)(iters + 1) * (M + N);
-  if (sizeof(float) * (floats + hist_floats) <= (size_t)optin) {
-    floats += hist_floats;
-    hist_shared = 1;
+
+  auto pair = [&](int m) { return cv & (((rows >> m) & 1ull) != 0); };
+  const float* hk = nullptr;             // history row k in shared memory
+  auto fk = [&](int m) { return m < M ? hk[m] : 0.f; };
+  // g_k = min(H[k], 0) on a valid column, 0 at k = 0
+  auto g_of = [&](int k) { return (k == 0 || !cv) ? 0.f : nan_min(hk[M + tid], 0.f); };
+  // df[m] = -(row m's sum of v) on valid rows, into this warp's copy s_df[par]
+  auto row_sums = [&](int par) {
+    reduce_scatter<R, 16>(v, lane);
+    float tot[KR];
+#pragma unroll
+    for (int i = 0; i < KR; ++i) tot[i] = v[i];
+    if constexpr (GROUP) {
+      float* part = s_part + par * W * R;
+      if (writer)
+#pragma unroll
+        for (int i = 0; i < KR; ++i) part[warp * R + row0 + i] = v[i];
+      if (cluster > 1) cg::this_cluster().sync();
+      else __syncthreads();
+#pragma unroll
+      for (int i = 0; i < KR; ++i) tot[i] = 0.f;
+      for (int r = 0; r < cluster; ++r) {
+        const float* pr = cluster > 1 ? cg::this_cluster().map_shared_rank(part, r) : part;
+        for (int w = 0; w < W; ++w)
+#pragma unroll
+          for (int i = 0; i < KR; ++i) tot[i] += pr[w * R + row0 + i];
+      }
+    }
+    float* dst = s_df + (par * W + warp) * R;
+    if (writer)
+#pragma unroll
+      for (int i = 0; i < KR; ++i) dst[row0 + i] = (rows >> (row0 + i) & 1) ? -tot[i] : 0.f;
+    __syncwarp();
+  };
+  // column pass k reversed: dC += df[m] * P with P from (F[k], g_k); dg =
+  // -(the column's increments, with dC's old entries when with_old: the
+  // final g also met X)
+  float g = 0.f, dg = 0.f;
+  auto p_pass = [&](float sc, int par, bool with_old) {
+    const float* df = s_df + (par * W + warp) * R;
+    float cs = 0.f;
+#pragma unroll
+    for (int m = 0; m < R; ++m) {
+      const float pw = ex2((g - c[m] + fk(m)) * sc);
+      const float inc = pair(m) ? df[m] * pw : 0.f;
+      cs += with_old ? d[m] : 0.f;
+      d[m] += inc;
+      cs += inc;
+    }
+    dg = -cs;
+  };
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // X = exp(min(L, 30)), L = (f + g - C) / epsilon on valid pairs, so dL =
+  // gX * X where L <= 30, and C's increment is -dL / epsilon; f's gradient
+  // is minus the row's sum (d holds gX until here)
+  hk = s_hist + (iters - lo) * hw;
+  g = g_of(iters);
+#pragma unroll
+  for (int m = 0; m < R; ++m) {
+    const float L = (fk(m) + g - c[m]) / epsilon;
+    const float x = expf(nan_min(L, 30.f));
+    const float inc = pair(m) && L <= 30.f ? -(d[m] * x) / epsilon : 0.f;
+    d[m] = inc;
+    v[m] = inc;
   }
-  const size_t smem = sizeof(float) * floats;
-  err = set_smem(reinterpret_cast<const void*>(matcher_backward_kernel<NPL>), smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  matcher_backward_kernel<NPL><<<B, T, smem, st>>>(
-      cosv, inter, at, ap, pf, pmask_pool, tf, rm, cm, gX, hist, dC, coef, urow, ucol, d_tf,
-      d_pooled, d_area, M, N, S, P, D, ldc, G, iou_weight, epsilon, iters, anneal,
-      epsilon_init, log_decay, dc_shared, hist_shared);
-  return static_cast<int>(cudaGetLastError());
+  row_sums(iters & 1);
+  p_pass(LOG2E / epsilon, iters & 1, true);
+  for (int k = iters - 1; k >= 0; --k) {
+    if (k < lo) {                        // the next chunk of the history
+      __syncthreads();
+      load_rows(max(0, k + 2 - chunk), k + 1);
+      cp_async_wait<0>();
+      __syncthreads();
+      hk = s_hist + (k + 1 - lo) * hw;
+    }
+    const float sc = s_sc[k];
+    const float h = hk[M + tid];          // H[k + 1]
+    hk -= hw;                             // row k from here on
+    g = g_of(k);
+    // row pass k reversed: dC += dh[n] * Q with Q from (F[k], H[k + 1]) and
+    // dh = dg where h <= 0 (the cap let it through); df = -(the row's sum)
+    const float dh = h <= 0.f ? dg : 0.f;
+#pragma unroll
+    for (int m = 0; m < R; ++m) {
+      const float qw = ex2((fk(m) - c[m] + h) * sc);
+      const float inc = pair(m) ? dh * qw : 0.f;
+      d[m] += inc;
+      v[m] = inc;
+    }
+    row_sums(k & 1);
+    p_pass(sc, k & 1, false);
+  }
+
+  float* o = dC_out + (size_t)b * M * N;
+#pragma unroll
+  for (int m = 0; m < R; ++m)
+    if (m < M && n < N) o[(size_t)m * N + n] = d[m];
+  if (GROUP && cluster > 1) cg::this_cluster().sync();   // no block leaves while another reads
+}
+
+constexpr int TAIL_WARPS = 4;          // rows a block, one a warp; quarters of the pairs
+constexpr int TAIL_THREADS = 32 * TAIL_WARPS;
+constexpr int TAIL_DC = 32 * DPL;      // feature dims a pass, DPL a lane
+
+// Block (x, b): TAIL_WARPS template rows m = 4x.. (x < ceil(M / 4)), or
+// proposals n = 4(x - ceil(M / 4)).. of element b.
+//   1. Warp r takes its row's pairs (lanes over the row's proposals, or the
+//      proposal's rows): du, coef (template rows only), the union's sum,
+//      and w = dcos * (the other side's inverse norm) into shared memory.
+//   2. The four rows' acc[d] = sum over the pairs of w * (the other side's
+//      feature d): warp q takes a quarter of the pairs for all four rows,
+//      each feature row it loads used four times, DPL dims a lane per pass;
+//      the quarters meet in shared memory and warp r adds its row's in
+//      quarter order.  Then the row's own features x: r * acc - r^3
+//      (acc . x) x, and for proposals pf's pooling denominator.
+__global__ void __launch_bounds__(TAIL_THREADS)
+matcher_tail_kernel(const float* __restrict__ dC, const float* __restrict__ k_inter,
+                    const float* __restrict__ k_at, const float* __restrict__ k_ap,
+                    const float* __restrict__ rt, const float* __restrict__ rp,
+                    const float* __restrict__ area, const float* __restrict__ pf,
+                    const float* __restrict__ tf, float* __restrict__ coef,
+                    float* __restrict__ urow, float* __restrict__ ucol,
+                    float* __restrict__ d_tf, float* __restrict__ d_pooled,
+                    float* __restrict__ d_area, int M, int N, int D, float iou_weight) {
+  __shared__ float s_w[TAIL_WARPS][MAX_N];
+  __shared__ float s_acc[TAIL_WARPS][TAIL_WARPS][TAIL_DC];   // [quarter][row][dim]
+  const int b = blockIdx.y;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tblocks = (M + TAIL_WARPS - 1) / TAIL_WARPS;
+  const bool trow = (int)blockIdx.x < tblocks;
+  const int first = ((int)blockIdx.x - (trow ? 0 : tblocks)) * TAIL_WARPS;
+  const int nrows = trow ? M : N, len = trow ? N : M;
+  const int row = first + warp;
+  const bool live = row < nrows;
+
+  float u = 0.f;
+  for (int e = lane; e < len; e += 32) {
+    float w = 0.f;
+    if (live) {
+      const int m = trow ? row : e, n = trow ? e : row;
+      const size_t pi = ((size_t)b * M + m) * N + n;
+      const float inter = k_inter[pi];
+      const float uni = k_at[(size_t)b * M + m] + k_ap[(size_t)b * N + n] - inter;
+      const float U = nan_max(uni, 1e-6f);
+      const float dc = dC[pi];
+      const float d_iou = -(iou_weight * dc);
+      const float du = uni >= 1e-6f ? -d_iou * ((inter / U) / U) : 0.f;
+      if (trow) coef[pi] = d_iou / U - du;
+      u += du;
+      w = -((1.f - iou_weight) * dc) * (trow ? rp[(size_t)b * N + n] : rt[(size_t)b * M + m]);
+    }
+    s_w[warp][e] = w;
+  }
+  u = warp_sum(u);
+  if (live && lane == 0) {
+    if (trow) urow[(size_t)b * M + row] = u;
+    else ucol[(size_t)b * N + row] = u;
+  }
+  __syncthreads();
+
+  const float* other = trow ? pf + (size_t)b * N * D : tf + (size_t)b * M * D;
+  const float* x = (trow ? tf + (size_t)b * M * D : pf + (size_t)b * N * D) + (size_t)row * D;
+  float* out = (trow ? d_tf + (size_t)b * M * D : d_pooled + (size_t)b * N * D) + (size_t)row * D;
+  const int e0 = len * warp / TAIL_WARPS, e1 = len * (warp + 1) / TAIL_WARPS;
+  float dot = 0.f;
+  for (int dc = 0; dc < D; dc += TAIL_DC) {
+    float acc[TAIL_WARPS][DPL];
+#pragma unroll
+    for (int r = 0; r < TAIL_WARPS; ++r)
+#pragma unroll
+      for (int i = 0; i < DPL; ++i) acc[r][i] = 0.f;
+#pragma unroll 2
+    for (int e = e0; e < e1; ++e) {
+      float o[DPL];
+#pragma unroll
+      for (int i = 0; i < DPL; ++i) {
+        const int d = dc + lane + 32 * i;
+        o[i] = d < D ? other[(size_t)e * D + d] : 0.f;
+      }
+#pragma unroll
+      for (int r = 0; r < TAIL_WARPS; ++r) {
+        const float w = s_w[r][e];
+#pragma unroll
+        for (int i = 0; i < DPL; ++i) acc[r][i] = fmaf(w, o[i], acc[r][i]);
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < TAIL_WARPS; ++r)
+#pragma unroll
+      for (int i = 0; i < DPL; ++i) s_acc[warp][r][lane + 32 * i] = acc[r][i];
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) {
+      const int d = dc + lane + 32 * i;
+      float t = s_acc[0][warp][lane + 32 * i];
+#pragma unroll
+      for (int q = 1; q < TAIL_WARPS; ++q) t += s_acc[q][warp][lane + 32 * i];
+      if (live && d < D) {
+        out[d] = t;
+        dot = fmaf(t, x[d], dot);
+      }
+    }
+    __syncthreads();                   // s_acc is free for the next pass
+  }
+  if (!live) return;
+  dot = warp_sum(dot);
+  const float r = trow ? rt[(size_t)b * M + row] : rp[(size_t)b * N + row];
+  const float r3 = r * r * r;
+  if (trow) {
+    for (int d = lane; d < D; d += 32) out[d] = r * out[d] - r3 * dot * x[d];
+    return;
+  }
+  // d pf, then d_pooled = d pf / den and d_area = -sum(d pf * pf) / den
+  // where area >= 1e-6
+  const float a = area[(size_t)b * N + row], den = nan_max(a, 1e-6f);
+  float dd = 0.f;
+  for (int d = lane; d < D; d += 32) {
+    const float dpf = r * out[d] - r3 * dot * x[d];
+    out[d] = dpf / den;
+    dd = fmaf(dpf, x[d], dd);
+  }
+  dd = warp_sum(dd);
+  if (lane == 0) d_area[(size_t)b * N + row] = a >= 1e-6f ? -dd / den : 0.f;
+}
+
+template <int R>
+cudaError_t launch_sweep(const float* hist, const float* kc, const float* rm, const float* cm,
+                         const float* gX, float* dC, int B, int M, int N, int warps,
+                         int cluster, float epsilon, int iters, int anneal, float epsilon_init,
+                         float log_decay, size_t optin, cudaStream_t st) {
+  const int T = 32 * warps;
+  // the history's rows in chunks of as many as fit (at least the 2 a step reads)
+  const size_t hw = (size_t)M + (size_t)T;
+  const size_t fixed = 4 * (size_t)warps * R + ((iters + 4) & ~3);
+  const size_t room = std::min(optin, SWEEP_HIST_BYTES) / sizeof(float);
+  const int chunk = static_cast<int>(std::min<size_t>(iters + 1, room > fixed ? (room - fixed) / hw : 0));
+  if (chunk < std::min(iters + 1, 2)) return cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * (fixed + chunk * hw);
+  auto kernel = warps * cluster > 1 ? matcher_sweep_kernel<R, true>
+                                    : matcher_sweep_kernel<R, false>;
+  cudaError_t err = set_smem(reinterpret_cast<const void*>(kernel), smem);
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * cluster);
+  cfg.blockDim = dim3(T);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = cluster > 1 ? 1 : 0;
+  return cudaLaunchKernelEx(&cfg, kernel, hist, kc, rm, cm, gX, dC, M, N, cluster, epsilon,
+                            iters, anneal, epsilon_init, log_decay, chunk);
 }
 
 // ---- host side ---------------------------------------------------------------
@@ -908,9 +1043,30 @@ bool bad_sizes(int B, int M, int N, int Pc, int D) {
   return B < 1 || M < 1 || M > MAX_M || N < 1 || N > MAX_N || Pc < 1 || D < 1;
 }
 
-// Scratch floats after pf: cos (B, M, N), inter (B, S, M, N), at (B, S, M), ap (B, S, N).
+// The scratch after pf: the cost phase's cosine (B, M, N) and per-slice
+// partial sums, inter (B, S, M, N), at (B, S, M), ap (B, S, N); the
+// cosine's inverse norms rt (B, M) and rp (B, N); the pooling masks' areas
+// (B, N), which only the pooling launch writes.  B1' reads pf, rt, rp and
+// area.
+struct CostScratch {
+  float *cosv, *inter, *at, *ap, *rt, *rp, *area;
+};
+
+CostScratch cost_parts(float* base, int B, int M, int N, int S) {
+  CostScratch c;
+  c.cosv = base;
+  c.inter = c.cosv + (size_t)B * M * N;
+  c.at = c.inter + (size_t)B * S * M * N;
+  c.ap = c.at + (size_t)B * S * M;
+  c.rt = c.ap + (size_t)B * S * N;
+  c.rp = c.rt + (size_t)B * M;
+  c.area = c.rp + (size_t)B * N;
+  return c;
+}
+
 size_t cost_scratch(int B, int M, int N, int S) {
-  return (size_t)B * M * N + (size_t)B * S * ((size_t)M * N + M + N);
+  return (size_t)B * M * N + (size_t)B * S * ((size_t)M * N + M + N) +
+         (size_t)B * (M + 2 * (size_t)N);
 }
 
 int launch_cost_and_sinkhorn(const float* tm, const float* pm, const float* tf,
@@ -921,31 +1077,48 @@ int launch_cost_and_sinkhorn(const float* tm, const float* pm, const float* tf,
                              float log_decay, cudaStream_t st) {
   const int S = pixel_slices(B, N, Pc);
   const int chunk = slice_len(Pc, S);
-  float* cosv = scratch;
-  float* inter = cosv + (size_t)B * M * N;
-  float* at = inter + (size_t)B * S * M * N;
-  float* ap = at + (size_t)B * S * M;
+  const CostScratch cs = cost_parts(scratch, B, M, N, S);
+  float* rt = hist ? cs.rt : nullptr;       // the inverse norms, only for B1'
+  float* rp = hist ? cs.rp : nullptr;
 
   const int rows = cdiv(M, MG);             // template rows per thread
   int err = static_cast<int>(cudaErrorInvalidValue);
-#define DMM_COST(R)                                                                     \
-  else if (rows <= R) err = launch_cost<R>(tm, pm, tf, pf, cosv, inter, at, ap, B, M, N, \
-                                           Pc, D, S, chunk, st);
+#define DMM_COST(R)                                                                          \
+  else if (rows <= R) err = launch_cost<R>(tm, pm, tf, pf, cs.cosv, cs.inter, cs.at, cs.ap,  \
+                                           rt, rp, B, M, N, Pc, D, S, chunk, st);
   if (false) {}
   DMM_COST(1) DMM_COST(2) DMM_COST(4) DMM_COST(8)
 #undef DMM_COST
   if (err != 0) return err;
 
   const int npl = cdiv(N, 32);
-#define DMM_SINKHORN(P)                                                                  \
-  if (npl <= P)                                                                          \
-    return launch_sinkhorn<P>(cosv, inter, at, ap, rm, cm, X, hist, B, M, N, S,          \
-                              iou_weight, epsilon, iters, anneal, epsilon_init, log_decay, \
+#define DMM_SINKHORN(P)                                                                    \
+  if (npl <= P)                                                                            \
+    return launch_sinkhorn<P>(cs.cosv, cs.inter, cs.at, cs.ap, rm, cm, X, hist, B, M, N, S, \
+                              iou_weight, epsilon, iters, anneal, epsilon_init, log_decay,   \
                               st);
   DMM_SINKHORN(1) DMM_SINKHORN(2) DMM_SINKHORN(4) DMM_SINKHORN(8) DMM_SINKHORN(16)
   DMM_SINKHORN(32)
 #undef DMM_SINKHORN
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The sweep's row capacity: M rounded up to a power of two, at least 8.
+int sweep_rows(int M) {
+  int r = 8;
+  while (r < M) r *= 2;
+  return r;
+}
+
+// The sweep's launch for one batch element of M x N pairs: a thread owns one
+// column with all its rows in registers, so the element takes as few warps
+// as own its N columns, in one block of at most sweep_max_threads or, past
+// that, a cluster of `cluster` such blocks.  p5 (8 x 64): 2 warps; p3 (16 x
+// 128): 4; p4 (32 x 256): 8; 64 x 1024: a cluster of 4 blocks of 8 warps.
+void sweep_geometry(int M, int N, int* warps, int* cluster) {
+  const int need = cdiv(N, 32);
+  *cluster = cdiv(need, sweep_max_threads(sweep_rows(M)) / 32);
+  *warps = cdiv(need, *cluster);
 }
 
 }  // namespace
@@ -959,8 +1132,26 @@ extern "C" long long dmm_matcher_scratch_floats(int B, int M, int N, int Pc, int
                                 (pooling ? (size_t)B * N * D : 0));
 }
 
-// hist: null, or B * (iters + 1) * (M + N) floats for the Sinkhorn's duals,
-// which B1' reads.
+// Floats of the buffer B1's forward keeps for B1' (its `hist` argument): the
+// Sinkhorn's duals, B * (iters + 1) * (M + N), then C and the intersections,
+// 2 * B * M * N, and both mask areas, B * (M + N).
+extern "C" long long dmm_matcher_kept_floats(int B, int M, int N, int iters) {
+  if (B < 1 || M < 1 || N < 1 || iters < 0) return -1;
+  return static_cast<long long>((size_t)B * (iters + 1) * (M + N) + 2 * (size_t)B * M * N +
+                                (size_t)B * (M + N));
+}
+
+// B1''s sweep for one batch element of M x N pairs: warps * 256 + cluster
+// (sweep_geometry), or -1 for sizes B1 does not take.
+extern "C" int dmm_matcher_sweep_geometry(int M, int N) {
+  if (M < 1 || M > MAX_M || N < 1 || N > MAX_N) return -1;
+  int warps, cluster;
+  sweep_geometry(M, N, &warps, &cluster);
+  return warps * 256 + cluster;
+}
+
+// hist: null, or dmm_matcher_kept_floats floats for what B1' reads (the
+// launches then also keep the mask areas and inverse norms in the scratch).
 extern "C" int dmm_fused_pool_cost_match(
     const float* emb, const float* pmask_pool, const float* tm, const float* pm,
     const float* tf, const float* rm, const float* cm, float* scratch, float* X, float* hist,
@@ -970,9 +1161,10 @@ extern "C" int dmm_fused_pool_cost_match(
   if (bad_sizes(B, M, N, Pc, D) || P < 1 || cdiv(D, PD) > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   float* pf = scratch;
+  const CostScratch cs = cost_parts(scratch + (size_t)B * N * D, B, M, N, pixel_slices(B, N, Pc));
   const size_t pool_smem = sizeof(float) * 2 * (size_t)(PN + PT) * LDT;
   matcher_pool_kernel<<<dim3(cdiv(N, PN), cdiv(D, PD), B), THREADS, pool_smem, st>>>(
-      emb, pmask_pool, pf, N, P, D);
+      emb, pmask_pool, pf, hist ? cs.area : nullptr, N, P, D);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return launch_cost_and_sinkhorn(tm, pm, tf, pf, rm, cm, scratch + (size_t)B * N * D, X,
@@ -993,35 +1185,43 @@ extern "C" int dmm_fused_cost_match(const float* tm, const float* pm, const floa
 }
 
 // Kernel B1': the backward of B1 on its forward's scratch (pf, then the cost
-// phase's cosine and partial sums) and duals (hist: B * (iters + 1) * (M + N)
-// floats), as dmm_fused_pool_cost_match left them.  dC: B * M * N floats,
-// used where it does not fit in shared memory.  Writes coef (B, M, N), urow
-// (B, M), ucol (B, N), d_tf (B, M, D), d_pooled (B, N, D), d_area (B, N).
+// phase's parts) and kept buffer (hist), as dmm_fused_pool_cost_match left
+// them: the sweep (dC, B * M * N floats), then the tail, which writes coef
+// (B, M, N), urow (B, M), ucol (B, N), d_tf (B, M, D), d_pooled (B, N, D),
+// d_area (B, N).
 extern "C" int dmm_fused_pool_cost_match_backward(
-    const float* pmask_pool, const float* tf, const float* rm, const float* cm,
-    const float* gX, const float* scratch, const float* hist, float* dC, float* coef,
-    float* urow,
-    float* ucol, float* d_tf, float* d_pooled, float* d_area, int B, int M, int N, int P,
-    int Pc, int D, float epsilon, int iters, float iou_weight, int anneal, float epsilon_init,
-    float log_decay, void* stream) {
-  if (bad_sizes(B, M, N, Pc, D) || P < 1 || iters < 0)
+    const float* tf, const float* rm, const float* cm, const float* gX, const float* scratch,
+    const float* hist, float* dC, float* coef, float* urow, float* ucol, float* d_tf,
+    float* d_pooled, float* d_area, int B, int M, int N, int Pc, int D, float epsilon,
+    int iters, float iou_weight, int anneal, float epsilon_init, float log_decay,
+    void* stream) {
+  if (bad_sizes(B, M, N, Pc, D) || iters < 0 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const int S = pixel_slices(B, N, Pc);
   const float* pf = scratch;
-  const float* cosv = pf + (size_t)B * N * D;
-  const float* inter = cosv + (size_t)B * M * N;
-  const float* at = inter + (size_t)B * S * M * N;
-  const float* ap = at + (size_t)B * S * M;
+  const CostScratch cs = cost_parts(const_cast<float*>(scratch) + (size_t)B * N * D, B, M, N, S);
+  const Kept kept = kept_parts(const_cast<float*>(hist), 0, B, M, N, iters);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int npl = cdiv(N, 32);
-#define DMM_BACKWARD(NP)                                                                    \
-  if (npl <= NP)                                                                            \
-    return launch_backward<NP>(cosv, inter, at, ap, pf, pmask_pool, tf, rm, cm, gX, hist, dC, \
-                               coef, urow, ucol, d_tf, d_pooled, d_area, B, M, N, S, P, D,  \
-                               iou_weight, epsilon, iters, anneal, epsilon_init, log_decay, \
-                               st);
-  DMM_BACKWARD(1) DMM_BACKWARD(2) DMM_BACKWARD(4) DMM_BACKWARD(8) DMM_BACKWARD(16)
-  DMM_BACKWARD(32)
-#undef DMM_BACKWARD
-  return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int R = sweep_rows(M);
+  int warps, cluster;
+  sweep_geometry(M, N, &warps, &cluster);
+  err = cudaErrorInvalidValue;
+#define DMM_SWEEP(RR)                                                                       \
+  else if (R == RR) err = launch_sweep<RR>(                                                 \
+      hist, kept.c, rm, cm, gX, dC, B, M, N, warps, cluster, epsilon, iters, anneal,        \
+      epsilon_init, log_decay, static_cast<size_t>(optin), st);
+  if (false) {}
+  DMM_SWEEP(8) DMM_SWEEP(16) DMM_SWEEP(32) DMM_SWEEP(64)
+#undef DMM_SWEEP
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int tblocks = (M + TAIL_WARPS - 1) / TAIL_WARPS, pblocks = (N + TAIL_WARPS - 1) / TAIL_WARPS;
+  matcher_tail_kernel<<<dim3(tblocks + pblocks, B), TAIL_THREADS, 0, st>>>(
+      dC, kept.inter, kept.at, kept.ap, cs.rt, cs.rp, cs.area, pf, tf, coef, urow, ucol, d_tf,
+      d_pooled, d_area, M, N, D, iou_weight);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -53,6 +53,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <algorithm>
+
 namespace {
 
 constexpr int THREADS = 256;
@@ -253,49 +255,75 @@ extern "C" int dmm_roi_align(const float* f0, const float* f1, const float* f2,
 // the JAX detector's training takes through `roi_align_mxu`'s dense
 // interpolation matrices on all four levels.
 //
-// The gather form: grid (tiles of TR x TW level pixels over all four levels,
-// blocks of BCB channels); thread t owns pixel (t / TW, t % TW) of its tile
-// and BCB accumulators.  The block takes the boxes in chunks of THREADS, one
-// thread a box, and lists in index order those on its level whose tap
-// window meets the tile (a ballot and a prefix over the warps).  For each
-// listed box it stages the box's upstream gradient (BCB x oh x ow), the
-// tile columns' weights Ax (ow x TW) and rows' weights Ay (oh x TR) in shared
-// memory, then adds the box in the separable form over the cells whose taps
-// reach the tile (the others weigh 0 on it): along x into shared memory,
-// then along y into the accumulators.  Every level pixel and channel
-// is written exactly once, by one thread, after all its boxes, so there is
-// no memset, no atomic, and the sum's order is fixed: the gradient is the
-// same from run to run.  A tile that no box touches writes its zeros.
+// The gather form, two launches:
+//   1. roi_align_backward_prep_kernel, one block per box: the box's level,
+//      its tap window, each cell's first and last tap row, and its weights
+//      as dense rows, Ax_k (ow x the level's width) and Ay_k (oh x its
+//      height), zero outside the window; each computed once, not once per
+//      (tile, channel block) that the box reaches.
+//   2. roi_align_backward_kernel, grid (tiles of TR x TW = 8 x 32 level
+//      pixels, blocks of BCB = 8 channels), coarse levels first so that the
+//      busiest tiles start first.  Warp j takes channel c0 + j and lane w the tile's
+//      column w, with the TR rows of that column in registers.  The block
+//      lists, per chunk of THREADS boxes and in index order, the boxes on its
+//      level whose window meets the tile (a ballot and a prefix over the
+//      warps), with the cells whose taps reach the tile's rows.  Then a
+//      two-stage cp.async pipeline: while box q is added, box q + 1's
+//      gradient slab (BCB x oh x ow) and its weights on the tile (ow x TW,
+//      oh x TR) are copied into shared memory, so a box costs its FMAs and
+//      one barrier.  A box is added in the separable form in registers:
+//      v = sum_x Ax[x][w] g[c][y][x] for each reaching cell row y (the slab
+//      rows as broadcast float4s), then acc[r] += Ay[y][r] v.
+//   A tile writes its pixels once, after all its boxes.  No memset, no
+//   atomics, and the order of every sum is fixed: the gradient is the same
+//   from run to run.  A tile that no box reaches writes its zeros.  (Cutting
+//   a busy tile's list into parts added in a fixed order paid only past
+//   ~12 boxes a tile, which only K=128 reaches; training sends K=32, at most
+//   9 a tile, so tiles are not split.)
 //
 // What bounds it on an H100: bytes in principle (the upstream gradient and
 // the boxes read, the four level gradients written: 11-16 MB per detector
-// head at 256x448, C=256, a few microseconds at 3.35 TB/s).  In practice the
-// chain of each touching box (load its gradient, two barriers, the two
-// passes) is latency, and the tiles of p5, which every large box touches,
-// walk the most boxes.
+// head at 256x448, C=256, a few microseconds at 3.35 TB/s).  Left after
+// this design: with few boxes a tile (K=32: 0-9), each block's fixed
+// latency (its listing, its first box's copy, its tile's write); with many
+// (K=128: up to 34 on a p3 tile), the FMAs of the dense tile form, every
+// cell column of a reaching cell row against ~2 taps a pixel (24 FMAs and
+// 6 shared loads per cell row and lane).
 
 namespace {
 
-constexpr int TR = 8;           // level rows per tile
-constexpr int TW = 32;          // level columns per tile
-constexpr int BCB = 8;          // channels per block
+constexpr int TR = 8;           // level rows per tile (a lane's registers)
+constexpr int TW = 32;          // level columns per tile (one per lane)
+constexpr int BCB = THREADS / 32;   // channels per block (one per warp)
+constexpr int INFO = 40;        // ints a box: level, window (4), 3 spare, cell rows' first and last taps
 
 struct GradLevels {
   float* grads[MAX_LEVELS];
   int H[MAX_LEVELS], W[MAX_LEVELS];
   float scale[MAX_LEVELS];
   int tiles_w[MAX_LEVELS];
-  int first_tile[MAX_LEVELS + 1];
+  int first_tile[MAX_LEVELS];   // first block x of level l; coarse levels first
+  int tiles[MAX_LEVELS];
 };
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+__device__ __forceinline__ void cp_async_wait_all() { asm volatile("cp.async.wait_group 0;\n" ::); }
 
 // The tap window of box k on a level of (H, W) at `scale`: rows [*ylo, *yhi]
 // and columns [*xlo, *xhi] (positions are monotone in the sample index).
-__device__ __forceinline__ void box_window(const float* boxes, int k, float scale, int H, int W,
-                                           int oh, int ow, int s, int* ylo, int* yhi, int* xlo,
-                                           int* xhi) {
-  const float bx1 = boxes[4 * k + 0] * scale, by1 = boxes[4 * k + 1] * scale;
-  const float bw = fmaxf(boxes[4 * k + 2] * scale - bx1, 1e-3f);
-  const float bh = fmaxf(boxes[4 * k + 3] * scale - by1, 1e-3f);
+__device__ __forceinline__ void box_window(float bx1, float by1, float bw, float bh, int H,
+                                           int W, int oh, int ow, int s, int* ylo, int* yhi,
+                                           int* xlo, int* xhi) {
   int i0, i1;
   float d;
   sample_pos(by1, bh, 0, 0, oh, s, H, ylo, &i1, &d);
@@ -304,48 +332,138 @@ __device__ __forceinline__ void box_window(const float* boxes, int k, float scal
   sample_pos(bx1, bw, ow - 1, s - 1, ow, s, W, &i0, xhi, &d);
 }
 
+// Column `col` of cell `cell`'s weights: 1/s * the bilinear weights of its
+// samples' taps on it.
+__device__ __forceinline__ float tap_weight(float start, float size, int cell, int out, int s,
+                                            int dim, int col) {
+  float a = 0.f;
+  for (int i = 0; i < s; ++i) {
+    int i0, i1;
+    float d;
+    sample_pos(start, size, cell, i, out, s, dim, &i0, &i1, &d);
+    if (i0 == col) a += 1.f - d;
+    if (i1 == col) a += d;
+  }
+  return a * (1.f / (float)s);
+}
+
+// Block k: box k's info (INFO ints: level, ylo, yhi, xlo, xhi, -, -, -, the
+// first tap row of cells 0..15, the last tap row of cells 0..15) and its
+// dense weights at taps + k * box_floats: Ax rows x < ow of stride wp over
+// the level's columns rounded up to TW, then (at 16 * wp) Ay rows y < oh of
+// stride hp over its rows rounded up to TR.
 __global__ void __launch_bounds__(THREADS)
-roi_align_backward_kernel(const __grid_constant__ GradLevels lv, const float* __restrict__ boxes,
-                          const int* __restrict__ level, const float* __restrict__ g, int K,
-                          int C, int oh, int ow, int s) {
-  __shared__ float s_g[BCB * MAX_OUT * MAX_OUT];   // [c][y][x] of one box
-  __shared__ float s_v[BCB * MAX_OUT * TW];        // [c][y][w]: along x
-  __shared__ float s_ax[MAX_OUT * TW];             // [x][w]
-  __shared__ float s_ay[MAX_OUT * TR];             // [y][r]
-  __shared__ int s_yt[MAX_OUT], s_xt[MAX_OUT];     // cells whose taps reach the tile
-  __shared__ int s_list[THREADS];                  // this chunk's boxes that touch the tile
+roi_align_backward_prep_kernel(const __grid_constant__ GradLevels lv,
+                               const float* __restrict__ boxes, const int* __restrict__ level,
+                               int* __restrict__ info, float* __restrict__ taps, int oh, int ow,
+                               int s, int wp, int hp, int box_floats) {
+  const int k = blockIdx.x, tid = threadIdx.x;
+  const int l = level ? min(max(level[k], 0), MAX_LEVELS - 1) : 0;
+  const int H = lv.H[l], W = lv.W[l];
+  const float scale = lv.scale[l];
+  const float bx1 = boxes[4 * k + 0] * scale, by1 = boxes[4 * k + 1] * scale;
+  const float bw = fmaxf(boxes[4 * k + 2] * scale - bx1, 1e-3f);
+  const float bh = fmaxf(boxes[4 * k + 3] * scale - by1, 1e-3f);
+  int ylo, yhi, xlo, xhi;
+  box_window(bx1, by1, bw, bh, H, W, oh, ow, s, &ylo, &yhi, &xlo, &xhi);
+  int* in = info + (size_t)k * INFO;
+  if (tid == 0) {
+    in[0] = l;
+    in[1] = ylo;
+    in[2] = yhi;
+    in[3] = xlo;
+    in[4] = xhi;
+  }
+  if (tid < oh) {               // cell tid's rows: its first sample's tap to its last's
+    int a0, b1, i0, i1;
+    float d;
+    sample_pos(by1, bh, tid, 0, oh, s, H, &a0, &i1, &d);
+    sample_pos(by1, bh, tid, s - 1, oh, s, H, &i0, &b1, &d);
+    in[8 + tid] = a0;
+    in[24 + tid] = b1;
+  }
+  // the weights, one thread an entry; only the window's need the taps
+  float* tk = taps + (size_t)k * box_floats;
+  const int wl = (W + TW - 1) / TW * TW, hl = (H + TR - 1) / TR * TR;
+  for (int e = tid; e < ow * wl; e += THREADS) {
+    const int x = e / wl, col = e - x * wl;
+    tk[x * wp + col] = col >= xlo && col <= xhi ? tap_weight(bx1, bw, x, ow, s, W, col) : 0.f;
+  }
+  for (int e = tid; e < oh * hl; e += THREADS) {
+    const int y = e / hl, row = e - y * hl;
+    tk[16 * wp + y * hp + row] =
+        row >= ylo && row <= yhi ? tap_weight(by1, bh, y, oh, s, H, row) : 0.f;
+  }
+}
+
+// XP: the staged slab's row stride, 8 (ow <= 8) or 16.
+template <int XP>
+__global__ void __launch_bounds__(THREADS)
+roi_align_backward_kernel(const __grid_constant__ GradLevels lv, const int* __restrict__ info,
+                          const float* __restrict__ taps, const float* __restrict__ g, int K,
+                          int C, int oh, int ow, int wp, int hp, int box_floats) {
+  constexpr int GS = BCB * 16 * XP;    // a stage's slab: [c][y][XP]
+  __shared__ __align__(16) float s_g[2 * GS];
+  __shared__ __align__(16) float s_ax[2 * 16 * TW];    // [x][w]
+  __shared__ __align__(16) float s_ay[2 * 16 * TR];    // [y][r]
+  __shared__ int s_list[THREADS], s_rng[THREADS];
   __shared__ int s_warp[THREADS / 32];
 
   int l = 0;
-  while (l + 1 < MAX_LEVELS && (int)blockIdx.x >= lv.first_tile[l + 1]) ++l;
+  while (l + 1 < MAX_LEVELS && ((int)blockIdx.x < lv.first_tile[l] ||
+                                (int)blockIdx.x >= lv.first_tile[l] + lv.tiles[l]))
+    ++l;
   const int t = blockIdx.x - lv.first_tile[l];
   const int H = lv.H[l], W = lv.W[l];
-  const float scale = lv.scale[l];
   const int r0 = (t / lv.tiles_w[l]) * TR, w0 = (t % lv.tiles_w[l]) * TW;
   const int c0 = blockIdx.y * BCB, nc = min(BCB, C - c0);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int rl = tid / TW, wl = tid % TW;
   const int ohw = oh * ow;
-  const float inv_s = 1.f / (float)s;
 
-  float acc[BCB];
+  for (int e = tid; e < 2 * GS; e += THREADS) s_g[e] = 0.f;     // the rows' pads stay 0
+  for (int e = tid; e < 2 * 16 * TW; e += THREADS) s_ax[e] = 0.f;
+  // a box's slab row by row: rows (c, y) c-major, XP threads a row, thread x
+  // copying column x < ow
+  constexpr int RPP = THREADS / XP;    // rows a pass
+  const int sx = tid % XP, srow = tid / XP, slab_rows = nc * oh;
+  const int sc0 = srow / oh, sy0 = srow - sc0 * oh;   // this thread's first row's (c, y)
+  auto stage = [&](int q, int buf) {
+    const int k = s_list[q];
+    const float* gk = g + ((size_t)k * C + c0) * ohw;
+    float* sg = s_g + buf * GS;
+    if (sx < ow) {
+      int c = sc0, y = sy0;
+      for (int row = srow; row < slab_rows; row += RPP) {
+        cp_async4(sg + (c * 16 + y) * XP + sx, gk + row * ow + sx);
+        for (y += RPP; y >= oh; y -= oh) ++c;
+      }
+    }
+    const float* tk = taps + (size_t)k * box_floats;
+    if (tid < ow * (TW / 4)) {
+      const int x = tid / (TW / 4), v = 4 * (tid % (TW / 4));
+      cp_async16(s_ax + buf * 16 * TW + x * TW + v, tk + x * wp + w0 + v);
+    } else if (tid >= 128 && tid < 128 + oh * (TR / 4)) {
+      const int y = (tid - 128) / (TR / 4), v = 4 * ((tid - 128) % (TR / 4));
+      cp_async16(s_ay + buf * 16 * TR + y * TR + v, tk + 16 * wp + y * hp + r0 + v);
+    }
+    cp_async_commit();
+  };
+
+  float acc[TR];
 #pragma unroll
-  for (int j = 0; j < BCB; ++j) acc[j] = 0.f;
+  for (int r = 0; r < TR; ++r) acc[r] = 0.f;
 
   for (int k0 = 0; k0 < K; k0 += THREADS) {
     // the chunk's boxes on this level whose window meets the tile, in order
     const int kt = k0 + tid;
+    const int4* in = reinterpret_cast<const int4*>(info + (size_t)min(kt, K - 1) * INFO);
     bool hit = false;
     if (kt < K) {
-      const int lk = level ? min(max(level[kt], 0), MAX_LEVELS - 1) : 0;
-      if (lk == l) {
-        int ylo, yhi, xlo, xhi;
-        box_window(boxes, kt, scale, H, W, oh, ow, s, &ylo, &yhi, &xlo, &xhi);
-        hit = yhi >= r0 && ylo < r0 + TR && xhi >= w0 && xlo < w0 + TW;
-      }
+      const int4 h0 = in[0], h1 = in[1];      // level, ylo, yhi, xlo; xhi
+      hit = h0.x == l && h0.z >= r0 && h0.y < r0 + TR && h1.x >= w0 && h0.w < w0 + TW;
     }
     const unsigned ballot = __ballot_sync(0xffffffffu, hit);
-    __syncthreads();              // the previous chunk's list is used
+    __syncthreads();              // the previous chunk's list and stages are used
     if (lane == 0) s_warp[warp] = __popc(ballot);
     __syncthreads();
     int base = 0, total = 0;
@@ -353,121 +471,160 @@ roi_align_backward_kernel(const __grid_constant__ GradLevels lv, const float* __
       base += w < warp ? s_warp[w] : 0;
       total += s_warp[w];
     }
-    if (hit) s_list[base + __popc(ballot & ((1u << lane) - 1u))] = kt;
+    if (hit) {                    // the cells whose taps reach the tile's rows
+      int first[MAX_OUT], last[MAX_OUT];    // each cell's first and last tap row
+#pragma unroll
+      for (int v = 0; v < MAX_OUT / 4; ++v) {
+        const int4 a = in[2 + v], b = in[6 + v];
+        first[4 * v] = a.x; first[4 * v + 1] = a.y; first[4 * v + 2] = a.z; first[4 * v + 3] = a.w;
+        last[4 * v] = b.x; last[4 * v + 1] = b.y; last[4 * v + 2] = b.z; last[4 * v + 3] = b.w;
+      }
+      int ya = oh, yb = -1;
+#pragma unroll
+      for (int y = 0; y < MAX_OUT; ++y)
+        if (y < oh && last[y] >= r0 && first[y] < r0 + TR) {
+          ya = min(ya, y);
+          yb = y;
+        }
+      const int at = base + __popc(ballot & ((1u << lane) - 1u));
+      s_list[at] = kt;
+      s_rng[at] = ya | yb << 8;
+    }
     __syncthreads();
 
+    // the list through the two-stage pipeline
+    if (total > 0) stage(0, 0);
     for (int q = 0; q < total; ++q) {
-      const int k = s_list[q];
-      const float bx1 = boxes[4 * k + 0] * scale, by1 = boxes[4 * k + 1] * scale;
-      const float bw = fmaxf(boxes[4 * k + 2] * scale - bx1, 1e-3f);
-      const float bh = fmaxf(boxes[4 * k + 3] * scale - by1, 1e-3f);
-      int i0, i1;
-      float d;
-      __syncthreads();            // the previous box's shared values are used
-      const float* gk = g + ((size_t)k * C + c0) * ohw;
-      for (int e = tid; e < BCB * ohw; e += THREADS) s_g[e] = e < nc * ohw ? gk[e] : 0.f;
-      for (int e = tid; e < ow * TW; e += THREADS) {
-        const int x = e / TW, col = w0 + e % TW;
-        float a = 0.f;
-        for (int i = 0; i < s; ++i) {
-          sample_pos(bx1, bw, x, i, ow, s, W, &i0, &i1, &d);
-          if (i0 == col) a += 1.f - d;
-          if (i1 == col) a += d;
-        }
-        s_ax[e] = a * inv_s;
-      }
-      for (int e = tid; e < oh * TR; e += THREADS) {
-        const int y = e / TR, row = r0 + e % TR;
-        float a = 0.f;
-        for (int i = 0; i < s; ++i) {
-          sample_pos(by1, bh, y, i, oh, s, H, &i0, &i1, &d);
-          if (i0 == row) a += 1.f - d;
-          if (i1 == row) a += d;
-        }
-        s_ay[e] = a * inv_s;
-      }
-      if (tid < oh) {             // cell tid's rows: its first sample's tap to its last's
-        int a0, b1;
-        sample_pos(by1, bh, tid, 0, oh, s, H, &a0, &i1, &d);
-        sample_pos(by1, bh, tid, s - 1, oh, s, H, &i0, &b1, &d);
-        s_yt[tid] = b1 >= r0 && a0 < r0 + TR;
-      } else if (tid >= 32 && tid < 32 + ow) {
-        int a0, b1;
-        sample_pos(bx1, bw, tid - 32, 0, ow, s, W, &a0, &i1, &d);
-        sample_pos(bx1, bw, tid - 32, s - 1, ow, s, W, &i0, &b1, &d);
-        s_xt[tid - 32] = b1 >= w0 && a0 < w0 + TW;
-      }
-      __syncthreads();
-      // the cells whose taps reach the tile: every other cell's weights on
-      // the tile are 0 (the cells are contiguous, the taps monotone)
-      int ya = oh, yb = -1, xa = ow, xb = -1;
-      for (int y = 0; y < oh; ++y)
-        if (s_yt[y]) { ya = min(ya, y); yb = y; }
-      for (int x = 0; x < ow; ++x)
-        if (s_xt[x]) { xa = min(xa, x); xb = x; }
-      const int ny = yb - ya + 1;
-
-      // along x: v[c][y][w] = sum_x Ax[x][w] * g[c][y][x]
-      for (int e = tid; e < BCB * ny * TW; e += THREADS) {
-        const int c = e / (ny * TW), y = ya + (e / TW) % ny, w = e % TW;
-        const float* grow = s_g + (c * oh + y) * ow;
-        float v = 0.f;
-        for (int x = xa; x <= xb; ++x) v = fmaf(s_ax[x * TW + w], grow[x], v);
-        s_v[(c * oh + y) * TW + w] = v;
-      }
-      __syncthreads();
-
-      // along y, into this thread's accumulators
-      for (int y = ya; y <= yb; ++y) {
-        const float a = s_ay[y * TR + rl];
+      const int buf = q & 1;
+      cp_async_wait_all();
+      __syncthreads();            // box q staged; box q - 1 added by every thread
+      if (q + 1 < total) stage(q + 1, buf ^ 1);
+      const float* sg = s_g + buf * GS + warp * 16 * XP;
+      const float* sax = s_ax + buf * 16 * TW + lane;
+      const float* say = s_ay + buf * 16 * TR;
+      float ax[XP];
 #pragma unroll
-        for (int j = 0; j < BCB; ++j) acc[j] = fmaf(a, s_v[(j * oh + y) * TW + wl], acc[j]);
+      for (int x = 0; x < XP; ++x) ax[x] = sax[x * TW];
+      const int rq = s_rng[q], yb = rq >> 8;
+      for (int y = rq & 255; y <= yb; ++y) {
+        const float4* gr = reinterpret_cast<const float4*>(sg + y * XP);
+        float v = 0.f;
+#pragma unroll
+        for (int x4 = 0; x4 < XP / 4; ++x4) {
+          const float4 q4 = gr[x4];
+          v = fmaf(ax[4 * x4 + 0], q4.x, v);
+          v = fmaf(ax[4 * x4 + 1], q4.y, v);
+          v = fmaf(ax[4 * x4 + 2], q4.z, v);
+          v = fmaf(ax[4 * x4 + 3], q4.w, v);
+        }
+        const float4 a0 = *reinterpret_cast<const float4*>(say + y * TR);
+        const float4 a1 = *reinterpret_cast<const float4*>(say + y * TR + 4);
+        acc[0] = fmaf(a0.x, v, acc[0]);
+        acc[1] = fmaf(a0.y, v, acc[1]);
+        acc[2] = fmaf(a0.z, v, acc[2]);
+        acc[3] = fmaf(a0.w, v, acc[3]);
+        acc[4] = fmaf(a1.x, v, acc[4]);
+        acc[5] = fmaf(a1.y, v, acc[5]);
+        acc[6] = fmaf(a1.z, v, acc[6]);
+        acc[7] = fmaf(a1.w, v, acc[7]);
       }
     }
   }
 
-  const int r = r0 + rl, w = w0 + wl;
-  if (r < H && w < W) {
-    float* o = lv.grads[l] + ((size_t)c0 * H + r) * W + w;
+  const int c = c0 + warp, w = w0 + lane;
+  if (c < C && w < W) {
+    float* o = lv.grads[l] + ((size_t)c * H + r0) * W + w;
 #pragma unroll
-    for (int j = 0; j < BCB; ++j)
-      if (j < nc) o[(size_t)j * H * W] = acc[j];
+    for (int r = 0; r < TR; ++r)
+      if (r0 + r < H) o[(size_t)r * W] = acc[r];
   }
+}
+
+struct BackwardScratch {
+  int* info;
+  float* taps;
+  size_t bytes;
+  int wp, hp, box_floats;
+};
+
+// The scratch of one call (carved from `base`, or only sized when base is
+// null): each box's info and dense weights.
+BackwardScratch backward_scratch(char* base, const int* Hs, const int* Ws, int K) {
+  BackwardScratch b;
+  int wmax = 1, hmax = 1;
+  for (int l = 0; l < MAX_LEVELS; ++l) {
+    wmax = std::max(wmax, Ws[l]);
+    hmax = std::max(hmax, Hs[l]);
+  }
+  b.wp = (wmax + TW - 1) / TW * TW;
+  b.hp = (hmax + TR - 1) / TR * TR;
+  b.box_floats = 16 * b.wp + 16 * b.hp;
+  const size_t info_bytes = (sizeof(int) * (size_t)K * INFO + 255) / 256 * 256;
+  b.info = reinterpret_cast<int*>(base);
+  b.taps = base ? reinterpret_cast<float*>(base + info_bytes) : nullptr;
+  b.bytes = info_bytes + sizeof(float) * (size_t)K * b.box_floats;
+  return b;
+}
+
+bool bad_levels(const int* Hs, const int* Ws) {
+  for (int l = 0; l < MAX_LEVELS; ++l)
+    if (Hs[l] < 1 || Ws[l] < 1) return true;
+  return false;
 }
 
 }  // namespace
 
+// Bytes of scratch one B4' call needs (dmm_roi_align_backward's `scratch`).
+extern "C" long long dmm_roi_align_backward_scratch_bytes(int H0, int H1, int H2, int H3, int W0,
+                                                          int W1, int W2, int W3, int K) {
+  const int Hs[MAX_LEVELS] = {H0, H1, H2, H3}, Ws[MAX_LEVELS] = {W0, W1, W2, W3};
+  if (K < 0 || bad_levels(Hs, Ws)) return -1;
+  return static_cast<long long>(backward_scratch(nullptr, Hs, Ws, K).bytes);
+}
+
 // The four level gradients (C, H_l, W_l) of the multi-level form, for the
 // upstream gradient g (K, C, oh, ow) and the boxes' levels (K,) int32 (the
-// forward's); every element of every grad_l is written.  K = 0 launches
-// nothing (the wrapper fills zeros).  Returns cudaGetLastError().
+// forward's); every element of every grad_l is written.  scratch: the bytes
+// dmm_roi_align_backward_scratch_bytes gives.  K = 0 launches nothing (the
+// wrapper fills zeros).  Returns cudaGetLastError().
 extern "C" int dmm_roi_align_backward(float* g0, float* g1, float* g2, float* g3, int H0,
                                       int H1, int H2, int H3, int W0, int W1, int W2, int W3,
                                       float sc0, float sc1, float sc2, float sc3,
                                       const float* boxes, const int* level, const float* g,
-                                      int K, int C, int oh, int ow, int s, void* stream) {
+                                      void* scratch, int K, int C, int oh, int ow, int s,
+                                      void* stream) {
   if (K < 0 || C < 1 || oh < 1 || ow < 1 || s < 1 || s > 4 || oh > MAX_OUT || ow > MAX_OUT)
     return static_cast<int>(cudaErrorInvalidValue);
   if (K == 0) return static_cast<int>(cudaSuccess);
-  GradLevels lv;
   float* gs[MAX_LEVELS] = {g0, g1, g2, g3};
   const int Hs[MAX_LEVELS] = {H0, H1, H2, H3}, Ws[MAX_LEVELS] = {W0, W1, W2, W3};
   const float scs[MAX_LEVELS] = {sc0, sc1, sc2, sc3};
-  lv.first_tile[0] = 0;
-  for (int l = 0; l < MAX_LEVELS; ++l) {
-    if (Hs[l] < 1 || Ws[l] < 1 || gs[l] == nullptr)
-      return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_levels(Hs, Ws)) return static_cast<int>(cudaErrorInvalidValue);
+  GradLevels lv;
+  int tiles = 0;
+  for (int l = MAX_LEVELS - 1; l >= 0; --l) {       // coarse levels first
+    if (gs[l] == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     lv.grads[l] = gs[l];
     lv.H[l] = Hs[l];
     lv.W[l] = Ws[l];
     lv.scale[l] = scs[l];
     lv.tiles_w[l] = (Ws[l] + TW - 1) / TW;
-    lv.first_tile[l + 1] = lv.first_tile[l] + (Hs[l] + TR - 1) / TR * lv.tiles_w[l];
+    lv.first_tile[l] = tiles;
+    lv.tiles[l] = (Hs[l] + TR - 1) / TR * lv.tiles_w[l];
+    tiles += lv.tiles[l];
   }
   const int cblocks = (C + BCB - 1) / BCB;
-  if (cblocks > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  roi_align_backward_kernel<<<dim3(lv.first_tile[MAX_LEVELS], cblocks), THREADS, 0,
-                              static_cast<cudaStream_t>(stream)>>>(lv, boxes, level, g, K, C,
-                                                                    oh, ow, s);
+  if (cblocks > 65535 || K > (1 << 30) / INFO) return static_cast<int>(cudaErrorInvalidValue);
+  const BackwardScratch sb = backward_scratch(static_cast<char*>(scratch), Hs, Ws, K);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  roi_align_backward_prep_kernel<<<K, THREADS, 0, st>>>(lv, boxes, level, sb.info, sb.taps, oh,
+                                                        ow, s, sb.wp, sb.hp, sb.box_floats);
+  const dim3 grid(tiles, cblocks);
+  if (ow <= 8)
+    roi_align_backward_kernel<8><<<grid, THREADS, 0, st>>>(lv, sb.info, sb.taps, g, K, C, oh, ow,
+                                                           sb.wp, sb.hp, sb.box_floats);
+  else
+    roi_align_backward_kernel<16><<<grid, THREADS, 0, st>>>(lv, sb.info, sb.taps, g, K, C, oh,
+                                                            ow, sb.wp, sb.hp, sb.box_floats);
   return static_cast<int>(cudaGetLastError());
 }

@@ -59,9 +59,10 @@ _LAUNCHES: Dict[str, int] = {"fused_pool_cost_match": 0,
                              "fused_pool_cost_match_backward": 0,
                              "roi_align_backward": 0}
 # Calls of B1's and B4's backwards on CUDA (kernels/matcher.py,
-# kernels/roi_align.py), under their forwards' names. Each launches its
-# kernel (B1' and B4', counted above) once per call, so on CUDA a backward's
-# calls equal its kernel's launches; a B4' call with no boxes launches none.
+# kernels/roi_align.py), under their forwards' names. Each backward is
+# counted above once per call, where it launches its two kernels, so on
+# CUDA a backward's calls equal its count there; a B4' call with no boxes
+# launches none.
 _BACKWARD_CALLS: Dict[str, int] = {"fused_pool_cost_match": 0, "roi_align": 0}
 
 # C signatures: every pointer and the stream are c_void_p (a bare Python int
@@ -74,8 +75,10 @@ _SIGNATURES = {
             [_P] * 10 + [_I] * 6 + [_F, _I, _F, _I, _F, _F, _P],
         "dmm_fused_cost_match": [_P] * 8 + [_I] * 5 + [_F, _I, _F, _P],
         "dmm_fused_pool_cost_match_backward":
-            [_P] * 14 + [_I] * 6 + [_F, _I, _F, _I, _F, _F, _P],
+            [_P] * 13 + [_I] * 5 + [_F, _I, _F, _I, _F, _F, _P],
         "dmm_matcher_scratch_floats": [_I] * 6,
+        "dmm_matcher_kept_floats": [_I] * 4,
+        "dmm_matcher_sweep_geometry": [_I] * 2,
     },
     "resolve": {
         "dmm_resolve_upsample_f32": [_P] * 9 + [_I] * 8 + [_F, _P],
@@ -88,13 +91,16 @@ _SIGNATURES = {
         "dmm_roi_align":
             [_P] * 4 + [_I] * 8 + [_F] * 4 + [_I] + [_P] * 3 + [_I] * 5 + [_P],
         "dmm_roi_align_backward":
-            [_P] * 4 + [_I] * 8 + [_F] * 4 + [_P] * 3 + [_I] * 5 + [_P],
+            [_P] * 4 + [_I] * 8 + [_F] * 4 + [_P] * 4 + [_I] * 5 + [_P],
+        "dmm_roi_align_backward_scratch_bytes": [_I] * 9,
     },
 }
 
 
 _RESTYPES = {"dmm_matcher_scratch_floats": ctypes.c_longlong,
-             "dmm_resolve_smem_bytes": ctypes.c_longlong}
+             "dmm_matcher_kept_floats": ctypes.c_longlong,
+             "dmm_resolve_smem_bytes": ctypes.c_longlong,
+             "dmm_roi_align_backward_scratch_bytes": ctypes.c_longlong}
 
 
 def nvcc_path() -> str:

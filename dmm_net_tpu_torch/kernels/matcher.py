@@ -16,10 +16,12 @@ B1 is differentiable (B1', the counterpart of the JAX package's
 ``torch.autograd.Function`` whose forward is the kernel and whose backward
 is the exact gradient of the unrolled Sinkhorn with respect to the
 embedding, both pooling and cost masks and the template features, none for
-the validity masks. On CUDA the backward is a kernel of its own in the same
-source (``matcher_backward_kernel``, one launch on the forward's scratch
-and the Sinkhorn duals the forward kept for it: the reverse sweep, the
-cost's tail), then four products for the mask and pooling inputs, which stay
+the validity masks. On CUDA the backward is two kernels of its own in the
+same source, on the forward's scratch and what the forward kept for it (the
+Sinkhorn's duals, C, the intersections and mask areas):
+``matcher_sweep_kernel``, the reverse sweep, sized to each element's pairs
+(``sweep_geometry`` reads its launch), and ``matcher_tail_kernel``, the cost's tail across
+the card; then four products for the mask and pooling inputs, which stay
 ``torch.baddbmm`` / ``torch.bmm`` as the JAX backward leaves them to XLA;
 products for inputs that need no gradient are skipped. On the CPU it is
 ``pool_cost_match_backward_plain``, the same forward-then-reverse sweep
@@ -73,6 +75,16 @@ def _check_cuda_inputs(what, shapes, M) -> None:
     N = shapes["col_mask"][1][1]
     if not 1 <= N <= _MAX_N:
         raise ValueError(f"{what}: N={N} outside [1, {_MAX_N}]")
+
+
+def sweep_geometry(M: int, N: int):
+    """B1''s reverse sweep for one batch element of M x N pairs, as
+    csrc/matcher.cu chooses it (its ``sweep_geometry``; needs the built
+    library): (warps a block, blocks a cluster)."""
+    g = _build.library("matcher").dmm_matcher_sweep_geometry(M, N)
+    if g < 0:
+        raise ValueError(f"sweep_geometry: M={M}, N={N} outside the kernel's limits")
+    return g // 256, g % 256
 
 
 def _scratch(lib, device, B, M, N, Pc, D, pooling: bool) -> torch.Tensor:
@@ -244,8 +256,9 @@ def _launch_pool_cost_match(emb, prop_masks_pool, tmpl_masks_cost,
                             epsilon, iters, iou_weight, epsilon_init,
                             keep: bool = False):
     """One B1 launch on checked CUDA inputs; returns X, and with ``keep``
-    what B1' reads: the scratch (pooled features, cosine, partial sums) and
-    the Sinkhorn's duals (B * (iters + 1) * (M + N) floats), else None."""
+    what B1' reads: the scratch (pooled features, cosine and its inverse
+    norms, partial sums, mask areas) and the kept buffer (the Sinkhorn's
+    duals, C, the intersections and mask areas), else None."""
     B, P, D = emb.shape
     M, Pc = tmpl_masks_cost.shape[1:]
     N = prop_masks_pool.shape[1]
@@ -254,8 +267,8 @@ def _launch_pool_cost_match(emb, prop_masks_pool, tmpl_masks_cost,
     lib = _build.library("matcher")
     scratch = _scratch(lib, emb.device, B, M, N, Pc, D, pooling=True)
     X = torch.empty((B, M, N), dtype=torch.float32, device=emb.device)
-    hist = (torch.empty((B * (iters + 1) * (M + N),), dtype=torch.float32,
-                        device=emb.device) if keep else None)
+    hist = (torch.empty((lib.dmm_matcher_kept_floats(B, M, N, iters),),
+                        dtype=torch.float32, device=emb.device) if keep else None)
     anneal, log_decay = _anneal(epsilon, iters, epsilon_init)
     with torch.cuda.device(emb.device):
         err = lib.dmm_fused_pool_cost_match(
@@ -274,10 +287,11 @@ def _launch_pool_cost_match(emb, prop_masks_pool, tmpl_masks_cost,
 
 def _launch_pool_cost_match_backward(saved, kept, gX, epsilon, iters,
                                      iou_weight, epsilon_init, needs):
-    """One B1' launch on the forward's inputs, scratch and duals, then the
-    products for the inputs in ``needs``: d_emb = pmp^T @ d_pooled,
-    d_pmp = d_pooled @ emb^T + d_area, d_tm = coef @ pm + urow,
-    d_pm = coef^T @ tm + ucol (torch.bmm / baddbmm); d_tf from the kernel."""
+    """B1''s two launches (the sweep, the tail) on the
+    forward's inputs, scratch and kept buffer, then the products for the
+    inputs in ``needs``: d_emb = pmp^T @ d_pooled, d_pmp = d_pooled @ emb^T
+    + d_area, d_tm = coef @ pm + urow, d_pm = coef^T @ tm + ucol (torch.bmm
+    / baddbmm); d_tf from the kernel."""
     emb, pmp, tm, pm, tf, row_mask, col_mask = saved
     B, P, D = emb.shape
     M, Pc = tm.shape[1:]
@@ -302,13 +316,12 @@ def _launch_pool_cost_match_backward(saved, kept, gX, epsilon, iters,
     lib = _build.library("matcher")
     with torch.cuda.device(dev):
         err = lib.dmm_fused_pool_cost_match_backward(
-            pmp.data_ptr(), tf.data_ptr(), rm.data_ptr(), cm.data_ptr(),
-            gX.data_ptr(), scratch.data_ptr(), hist.data_ptr(), dC.data_ptr(),
-            coef.data_ptr(), urow.data_ptr(), ucol.data_ptr(), d_tf.data_ptr(),
-            d_pooled.data_ptr(), d_area.data_ptr(), B, M, N, P, Pc, D,
-            float(epsilon), int(iters), float(iou_weight), int(anneal),
-            float(epsilon_init or 0.0), float(log_decay),
-            torch.cuda.current_stream(dev).cuda_stream)
+            tf.data_ptr(), rm.data_ptr(), cm.data_ptr(), gX.data_ptr(),
+            scratch.data_ptr(), hist.data_ptr(), dC.data_ptr(), coef.data_ptr(),
+            urow.data_ptr(), ucol.data_ptr(), d_tf.data_ptr(), d_pooled.data_ptr(),
+            d_area.data_ptr(), B, M, N, Pc, D, float(epsilon), int(iters),
+            float(iou_weight), int(anneal), float(epsilon_init or 0.0),
+            float(log_decay), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "fused_pool_cost_match_backward")
     _build.count("fused_pool_cost_match_backward")
     grads = [None] * 5
@@ -329,7 +342,8 @@ class _PoolCostMatch(torch.autograd.Function):
     """B1 with B1' as its backward. Forward: the CUDA kernel (the plain
     version for CPU tensors); it saves the five float inputs and the two
     validity masks, and on CUDA, when an input needs a gradient, the
-    kernel's scratch and the Sinkhorn's duals. Backward: B1''s kernel for CUDA tensors (one
+    kernel's scratch and kept buffer. Backward: B1''s kernels for CUDA
+    tensors (the sweep and the tail, counted once as a
     ``fused_pool_cost_match_backward`` launch, then the products), the
     plain version ``pool_cost_match_backward_plain`` for CPU tensors; on
     CUDA each backward also counts one call in

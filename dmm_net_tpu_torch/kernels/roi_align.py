@@ -20,10 +20,12 @@ the layout the detector's heads consume.
 
 B4' is ``multilevel_roi_align``'s gradient with respect to the four levels
 (the detector's training needs it for both heads): ``_MultilevelRoiAlign``,
-a ``torch.autograd.Function`` whose forward is B4 and whose backward is a
-kernel of its own in the same source (``roi_align_backward_kernel``: each
-level pixel gathers the taps of the boxes on its level, in box order, so it
-is written once, with no atomics, and the same from run to run). It
+a ``torch.autograd.Function`` whose forward is B4 and whose backward is two
+kernels of its own in the same source (``roi_align_backward_prep_kernel``
+computes each box's taps once; ``roi_align_backward_kernel`` has each level
+pixel gather the taps of the boxes on its level, in box order, through a
+two-stage copy pipeline: each pixel is written once, with no atomics, and
+the same from run to run). It
 replaces XLA's gradient of the reference's ``_multilevel_roi_align`` (the
 JAX detector differentiates ``roi_align_mxu`` on all four levels; no Pallas
 backward there). On the CPU the backward is its plain version
@@ -154,7 +156,7 @@ def _launch(feats: Sequence[torch.Tensor], scales: Sequence[float],
 
 def _launch_backward(shapes, boxes: torch.Tensor, level: torch.Tensor,
                      g_out: torch.Tensor, oh: int, ow: int, s: int) -> list:
-    """B4''s kernel on CUDA tensors: the four level gradients (C, H_l, W_l)
+    """B4''s kernels on CUDA tensors: the four level gradients (C, H_l, W_l)
     float32 for the upstream gradient g_out (K, C, oh, ow) and the boxes'
     levels (K,) int32; zeros with no launch when K = 0."""
     dev = boxes.device
@@ -174,13 +176,17 @@ def _launch_backward(shapes, boxes: torch.Tensor, level: torch.Tensor,
     grads = [torch.empty(sh, dtype=torch.float32, device=dev) for sh in shapes]
     g_out = g_out.contiguous()
     lib = _build.library("roi_align")
+    Hs, Ws = [sh[1] for sh in shapes], [sh[2] for sh in shapes]
+    nbytes = lib.dmm_roi_align_backward_scratch_bytes(*Hs, *Ws, K)
+    if nbytes < 0:
+        raise ValueError(f"roi_align backward: levels {shapes} not taken by the kernel")
+    scratch = torch.empty((nbytes,), dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         err = lib.dmm_roi_align_backward(
-            *[t.data_ptr() for t in grads], *[sh[1] for sh in shapes],
-            *[sh[2] for sh in shapes],
+            *[t.data_ptr() for t in grads], *Hs, *Ws,
             *[1.0 / 2 ** (i + 2) for i in range(_MAX_LEVELS)],
-            boxes.data_ptr(), level.data_ptr(), g_out.data_ptr(), K, C, oh, ow,
-            int(s), torch.cuda.current_stream(dev).cuda_stream)
+            boxes.data_ptr(), level.data_ptr(), g_out.data_ptr(), scratch.data_ptr(),
+            K, C, oh, ow, int(s), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "roi_align_backward")
     _build.count("roi_align_backward")
     return grads
@@ -190,8 +196,8 @@ class _MultilevelRoiAlign(torch.autograd.Function):
     """B4 with B4' as its backward. Forward: the CUDA kernel (the plain
     version for CPU tensors); it saves the boxes, their FPN levels and the
     maps' shapes, not the maps: the gradient of ROI-Align never reads them.
-    Backward: B4''s kernel for CUDA tensors (one ``roi_align_backward``
-    launch), ``multilevel_roi_align_backward_plain`` for CPU tensors; on
+    Backward: B4''s kernels for CUDA tensors (two launches, counted once as
+    ``roi_align_backward``), ``multilevel_roi_align_backward_plain`` for CPU tensors; on
     CUDA each backward also counts one call in ``_build.backward_calls()``."""
 
     @staticmethod

@@ -200,6 +200,35 @@ def test_b4_backward_plain_matches_jax_vjp(out_size):
         assert _rel(np.moveaxis(g.numpy(), 0, -1), w) < 1e-5, l
 
 
+@pytest.mark.parametrize("out_size", [(7, 7), (14, 14)])
+def test_b4_backward_plain_matches_jax_vjp_on_one_busy_tile(out_size):
+    """The explicit plain B4' equals jax.vjp of the reference's
+    _multilevel_roi_align (1e-5 relative per level) where 37 boxes (not a
+    multiple of the kernel's listing chunk) of sides 120-210 px around one
+    point all reach the same p3 tiles: the gather's busiest case."""
+    rng = np.random.RandomState(5)
+    maps = {f"p{l}": rng.randn(1, 256 >> l, 512 >> l, 8).astype(np.float32)
+            for l in (2, 3, 4, 5)}
+    side = 120 + 90 * rng.rand(37, 1)
+    boxes = np.concatenate([[200.0, 120.0] - side / 2, [200.0, 120.0] + side / 2],
+                           1).astype(np.float32)
+    cot = rng.randn(len(boxes), *out_size, 8).astype(np.float32)
+    _, vjp = jax.vjp(lambda m: jax_multilevel_roi_align(m, jnp.asarray(boxes),
+                                                        out_size),
+                     {k: jnp.asarray(v) for k, v in maps.items()})
+    (want,) = vjp(jnp.asarray(cot))
+    levels = [_nchw(maps[f"p{l}"])[0] for l in (2, 3, 4, 5)]
+    assert (fpn_levels(torch.from_numpy(boxes)) == 1).sum() >= 30
+    got = multilevel_roi_align_backward_plain(levels, torch.from_numpy(boxes),
+                                              _nchw(cot), out_size)
+    for l, g in zip((2, 3, 4, 5), got):
+        w = np.asarray(want[f"p{l}"])[0]
+        if not np.abs(w).max() > 0:
+            assert not g.any(), l
+            continue
+        assert _rel(np.moveaxis(g.numpy(), 0, -1), w) < 1e-5, l
+
+
 def _b4_boxes(case):
     """Boxes on each of the four levels of a 64x96 image (p2 16x24): inside,
     across and at the border, and degenerate (under 1e-3 wide and high)."""

@@ -221,6 +221,38 @@ def test_bench_matcher_times_several_shapes_in_train_mode(capsys, few_threads): 
     assert capsys.readouterr().out.count(", train\n") == 2
 
 
+def test_bench_matcher_times_the_backward_at_named_shapes(capsys, few_threads):  # noqa: F811
+    """--backward times the forward and B1' (all five gradients) of each
+    version at chip_smoke.py 7a's named shapes, with their epsilons; the
+    device split needs a card, so on the CPU only the two wall times."""
+    r = _tool("bench_matcher_torch").main(
+        ["--device", "cpu", "--iters", "1", "--P", "16", "--D", "8", "--Pc", "64",
+         "--sinkhorn", "3", "--shape", "p5", "--shape", "2,4,16", "--backward"])
+    assert list(r) == ["p5", "B=2 M=4 N=16"]
+    for row in r.values():
+        assert set(row) == {"plain_ms", "kernel_ms"}
+        assert all(math.isfinite(v) and v > 0 for v in row.values())
+    out = capsys.readouterr().out
+    assert "B=4 M=8 N=64" in out and "epsilon=0.03, backward" in out
+    assert "epsilon=0.05, backward" in out
+
+
+def test_bench_roi_align_times_both_heads_per_train_image(capsys, few_threads):  # noqa: F811
+    """bench/bench_roi_align_torch.py on the CPU times the plain versions
+    (the forward, and with --backward the explicit plain backward) of both
+    heads at chip_smoke.py 9a's pyramid, and their sum per train image."""
+    tool = _tool("bench_roi_align_torch")
+    for extra in ([], ["--backward"]):
+        r = tool.main(["--device", "cpu", "--K", "3", "--calls", "1", *extra])
+        assert set(r) == {"K=3 box", "K=3 mask", "K=3 image"}
+        assert r["K=3 image"] == r["K=3 box"]["ms"] + r["K=3 mask"]["ms"] > 0
+    assert "backward" in capsys.readouterr().out
+    levels, boxes, g = tool.detector_inputs(5, (14, 14), "cpu", C=8)
+    assert [tuple(f.shape) for f in levels] == [(8, 64, 112), (8, 32, 56), (8, 16, 28), (8, 8, 14)]
+    assert tuple(boxes.shape) == (5, 4) and tuple(g.shape) == (5, 8, 14, 14)
+    assert boxes[-1].tolist() == [0.0, 0.0, 448.0, 256.0]
+
+
 def test_bench_refuses_without_a_card(monkeypatch):
     monkeypatch.delenv("BENCH_DEVICE", raising=False)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -255,6 +287,7 @@ TOOLS = {
                                  {"BENCH_REPS": "1", "BENCH_DEPTH": "2"}),
     "bench_objpack_torch": (["--device", "cpu", "--objects", "2", "--image-size",
                              "64", "64"], {"BENCH_BATCH": "1", "BENCH_REPS": "1"}),
+    "bench_roi_align_torch": (["--device", "cpu", "--K", "2", "--calls", "1"], {}),
 }
 
 

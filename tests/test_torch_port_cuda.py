@@ -545,6 +545,80 @@ def test_cuda_b1_rejects_sizes_beyond_its_kernels(cuda_kernels):
             fused_pool_cost_match(*_matcher_problem(gen, *shape))
 
 
+# B1''s sweep geometry as csrc/matcher.cu chooses it (read through
+# matcher.sweep_geometry); the next test runs the kernel at each edge.
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,N,want", [
+    (8, 64, (2, 1)),         # p5_train: two warps, 8 pairs a thread
+    (16, 128, (4, 1)),       # p3
+    (32, 256, (8, 1)),       # p4: one block at its most threads
+    (32, 257, (5, 2)),       # past it: a cluster of two
+    (16, 512, (16, 1)),
+    (16, 513, (9, 2)),
+    (8, 1024, (32, 1)),      # 8 rows: one block of 1024 threads
+    (64, 256, (8, 1)),
+    (64, 800, (7, 4)),
+    (64, 1024, (8, 4)),
+    (9, 64, (2, 1)),         # 16 rows from M = 9
+    (4, 16, (1, 1)),         # one warp: its passes meet no barrier
+    (1, 1, (1, 1))])
+def test_cuda_b1_sweep_geometry_at_its_edges(cuda_kernels, M, N, want):
+    from dmm_net_tpu_torch.kernels.matcher import sweep_geometry
+    assert sweep_geometry(M, N) == want
+
+
+@pytest.mark.cuda
+def test_cuda_b1_sweep_geometry_holds_every_size(cuda_kernels):
+    """For every M, N the kernel takes: the threads own all N columns, a
+    block stays within the most threads that M's rows allow (1024 for 8
+    rows, 512 for 16, 256 past), a cluster within 8 blocks, and no smaller
+    cluster would do."""
+    from dmm_net_tpu_torch.kernels.matcher import _MAX_M, _MAX_N, sweep_geometry
+    for M in range(1, _MAX_M + 1):
+        most = 1024 if M <= 8 else 512 if M <= 16 else 256
+        for N in range(1, _MAX_N + 1):
+            warps, cluster = sweep_geometry(M, N)
+            assert cluster * warps * 32 >= N
+            assert 32 * warps <= most and 1 <= cluster <= 8
+            assert cluster == 1 or (cluster - 1) * most < N
+    with pytest.raises(ValueError, match="limits"):
+        sweep_geometry(65, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,epsilon,iters", [
+    ((2, 16, 512, 64, 32, 256), 0.05, 30),    # the most columns one block of 16 rows holds
+    ((2, 16, 513, 64, 32, 256), 0.05, 30),    # one more: a cluster of two blocks
+    ((2, 32, 256, 64, 32, 256), 0.05, 30),    # p4's block at its most threads
+    ((2, 32, 257, 64, 32, 256), 0.05, 30),    # a cluster of two
+    ((1, 64, 800, 64, 32, 256), 0.05, 30),    # a cluster of four (B1's forward holds
+                                              # C in shared memory: M x N under ~56K)
+    ((2, 9, 300, 64, 32, 256), 0.03, 30),     # 16 rows; N > 256, not a multiple of 32
+    ((2, 8, 1024, 64, 32, 256), 0.03, 30),    # 8 rows: one block of 32 warps
+    ((3, 4, 19, 37, 24, 300), 0.03, 30),      # one warp: no barrier
+    ((2, 64, 40, 64, 32, 256), 0.05, 400),    # the duals' history in several chunks
+    ((3, 33, 100, 37, 24, 300), 0.05, 0)])    # no iteration; 64 rows, unaligned
+def test_cuda_b1_backward_at_the_edges_of_its_geometry(cuda_kernels, shape, epsilon, iters):
+    """B1''s sweep where its geometry (the tests above) changes: the
+    warps a block takes, a cluster of blocks, columns past 256 and not a
+    multiple of 32, the duals' history staged in chunks; X within 2e-4 and
+    each gradient within 1e-3 of its largest entry against both plain
+    versions, and two backwards bit-equal."""
+    from dmm_net_tpu_torch.kernels.matcher import pool_cost_match_backward_plain
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    arrs = _matcher_problem(gen, *shape)
+    gX = torch.randn(*shape[:3], device="cuda", generator=gen)
+    kw = dict(epsilon=epsilon, iters=iters)
+    Xk, gk = _b1_grads(fused_pool_cost_match, arrs, gX, **kw)
+    _, gk2 = _b1_grads(fused_pool_cost_match, arrs, gX, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(gk, gk2))
+    Xp, gp = _b1_grads(pool_cost_match_plain, arrs, gX, **kw)
+    assert (Xk - Xp).abs().max().item() <= 2e-4
+    _within(gk, gp, 1e-3)
+    _within(gk, pool_cost_match_backward_plain(*arrs, gX, **kw), 1e-3)
+
+
 def _roi_grads(fn, levels, boxes, g, out_size):
     xs = [t.clone().requires_grad_(True) for t in levels]
     return torch.autograd.grad(fn(xs, boxes, out_size, 2), xs, g)
@@ -585,6 +659,43 @@ def test_cuda_b4_backward_kernel_matches_both_plain_versions(cuda_kernels, K, ou
              multilevel_roi_align_backward_plain(levels, boxes, g, out_size, 2))
     for want in wants:
         for a, b in zip(got, want):         # a level no box is on has no gradient
+            assert (a - b).abs().max().item() <= 1e-4 * max(b.abs().max().item(), 1e-30)
+
+
+def _one_tile_boxes(gen, K):
+    """K boxes on p3 (sides 120-210 px) around one point of the 256x448
+    image, so that every one of them reaches the same p3 tiles."""
+    side = 120 + torch.rand(K, 1, device="cuda", generator=gen) * 90
+    c = torch.tensor([[200.0, 120.0]], device="cuda")
+    return torch.cat([c - side / 2, c + side / 2], 1).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one_tile_300", "image_480x864", "border_and_whole",
+                                  "K_37"])
+@pytest.mark.parametrize("out_size", [(7, 7), (14, 14)])
+def test_cuda_b4_backward_at_the_edges_of_its_geometry(cuda_kernels, case, out_size):
+    """B4''s gather where its geometry changes: 300 boxes on one tile (more
+    than a listing chunk of 256), a 480x864 pyramid (other tile counts per
+    level), boxes on and past the border and covering a whole level, K not a
+    multiple of the chunk; against both plain
+    versions (1e-4 relative per level), two backwards bit-equal."""
+    from dmm_net_tpu_torch.kernels.roi_align import multilevel_roi_align_backward_plain
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    image = (480, 864) if case == "image_480x864" else (256, 448)
+    levels = _pyramid(gen, C=64, image=image)
+    boxes = {"one_tile_300": lambda: _one_tile_boxes(gen, 300),
+             "image_480x864": lambda: _boxes(gen, 64, *image),
+             "border_and_whole": _edge_boxes,
+             "K_37": lambda: _boxes(gen, 37, *image)}[case]()
+    g = torch.randn(boxes.shape[0], 64, *out_size, device="cuda", generator=gen)
+    got = _roi_grads(multilevel_roi_align, levels, boxes, g, out_size)
+    again = _roi_grads(multilevel_roi_align, levels, boxes, g, out_size)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    wants = (_roi_grads(multilevel_roi_align_plain, levels, boxes, g, out_size),
+             multilevel_roi_align_backward_plain(levels, boxes, g, out_size, 2))
+    for want in wants:
+        for a, b in zip(got, want):
             assert (a - b).abs().max().item() <= 1e-4 * max(b.abs().max().item(), 1e-30)
 
 
