@@ -162,6 +162,17 @@ Phases, each fatal on failure:
      none below -BREAKDOWN_NOISE_MS; (12c) graft_entry_torch.entry() run
      twice with its state fed back (B1, B2 once per step) and
      dryrun_multichip(2) on two ranks sharing the card over gloo.
+  13. the JAX package's orbax checkpoints: the committed fixture
+     (artifacts/orbax_jax_fixture/, written by the JAX package's
+     Checkpointer: two runs, grad_accum 1 and 2, two steps each and an
+     unfinished save) read by the port's own reader (OCDBT, zarr, zstd
+     through the system's libzstd; no JAX, orbax or tensorstore here),
+     every leaf bit-equal to digests.json, the host ms and MB/s of the
+     read, the trees moved to the card and back unchanged, the CLIs' route
+     (checkpoint_kind, latest_orbax_step, load_checkpoint's params of the
+     latest step), and each run's optax state in the port's Optimizer
+     taking its next update on the card, within ORBAX_UPDATE_REL of JAX's
+     and of the CPU's.
 
 PIL is required (phases 5d, 6, 7, 9 and 11 read and write image trees;
 phase 6c reads with PIL, as the JAX package's reference was computed). Prints
@@ -3656,6 +3667,233 @@ def graft_entry_path():
                        "launches_per_rank": [r["launches"] for r in ranks]}}
 
 
+# Phase 13: the JAX package's orbax checkpoints (train.py's TrainState), read
+# by the port's own reader (utils/ocdbt.py, with zstd through the system's
+# libzstd; utils/checkpoint.py's zarr arrays and orbax tree) on a machine
+# with no JAX, orbax or tensorstore. artifacts/orbax_jax_fixture/ was
+# written on the CPU by the JAX package's Checkpointer
+# (tests/torch_port_orbax_fixture.py): per run a directory of two step
+# directories and a left-over unfinished save, the params those of
+# orbax_fixture_module. digests.json holds each array leaf's sha256, and
+# the JAX-computed next update of each run (make_optimizer's update with
+# gradient orbax_fixture_tree(seed, scale)), held to ORBAX_UPDATE_REL
+# (phase 7c's tolerance) in summed absolute values per parameter.
+ORBAX_FIXTURE = ROOT / "artifacts" / "orbax_jax_fixture"
+ORBAX_UPDATE_REL = 1e-4
+ORBAX_PARAM_SHAPES = {"BatchNorm_0": {"bias": (32,), "scale": (32,)},
+                      "Conv_0": {"bias": (32,), "kernel": (3, 3, 16, 32)},
+                      "head": {"bias": (8,), "kernel": (32, 8)}}
+
+
+def orbax_fixture_module(device):
+    """The module whose parameters the orbax fixture's params are: a 3x3
+    conv (flax Conv_0, HWIO), its BatchNorm (BatchNorm_0) and a dense head
+    (head, (in, out))."""
+    import torch
+    from dmm_net_tpu_torch.models.layers import BatchNorm, Conv
+    net = torch.nn.Module()
+    net.conv0 = Conv(16, 32, 3)
+    net.bn0 = BatchNorm(32)
+    net.head = torch.nn.Linear(32, 8)
+    return net.to(device)
+
+
+def orbax_fixture_tree(seed: int, scale: float) -> dict:
+    """A params-shaped tree in flax's layout (numpy float32, normal draws
+    times ``scale``): the fixture's initial params and every gradient."""
+    rng = np.random.RandomState(seed)
+    return {m: {k: (rng.randn(*shape) * scale).astype(np.float32)
+                for k, shape in sorted(leaves.items())}
+            for m, leaves in sorted(ORBAX_PARAM_SHAPES.items())}
+
+
+def _raw_bytes(t) -> bytes:
+    """A tensor's bytes in C order, whatever its dtype."""
+    import torch
+    return t.detach().cpu().contiguous().reshape(-1).view(torch.uint8) \
+        .numpy().tobytes()
+
+
+def orbax_leaf_digests(tree) -> dict:
+    """{path: [shape, dtype, sha256 of the C-order bytes]} for every tensor
+    leaf of a tree read by utils/checkpoint.read_orbax_state (dict keys and
+    tuple indices joined by "/")."""
+    import hashlib
+    import torch
+    out = {}
+
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], path + (str(k),))
+        elif isinstance(node, (tuple, list)):
+            for i, v in enumerate(node):
+                walk(v, path + (str(i),))
+        elif isinstance(node, torch.Tensor):
+            out["/".join(path)] = [list(node.shape),
+                                   str(node.dtype).replace("torch.", ""),
+                                   hashlib.sha256(_raw_bytes(node)).hexdigest()]
+        elif node is not None:
+            raise TypeError(f"{'/'.join(path)}: a {type(node).__name__} leaf")
+
+    walk(tree, ())
+    return out
+
+
+def orbax_fixture_update(tree, run: dict, device) -> dict:
+    """A run's next update on ``device``: the fixture module's parameters
+    and BN statistics from ``tree`` (a TrainState read from the fixture),
+    make_optimizer's optax state into the port's Optimizer, one update
+    with the run's recorded gradient. Per parameter: the summed absolute
+    update and moments after it, and the count of updates applied."""
+    import torch
+    from dmm_net_tpu_torch.config import Config, TrainConfig
+    from dmm_net_tpu_torch.train.loop import Optimizer
+    from dmm_net_tpu_torch.weights import convert_flax_variables, load_flax_variables
+    net = orbax_fixture_module(device)
+    load_flax_variables(net, {"params": tree["params"], "batch_stats": {
+        "BatchNorm_0": tree["batch_stats"]["BatchNorm_0"]}})
+    opt = Optimizer(net.parameters(), Config(train=TrainConfig(**run["train"])))
+    opt.load_optax_state(tree["opt_state"], net)
+    names = [n for n, _ in net.named_parameters()]
+    before = [p.detach().clone() for p in opt.params]
+    grads = convert_flax_variables(
+        {"params": orbax_fixture_tree(*run["next"]["gradient"])}, net)
+    opt.update([grads[n].to(device) for n in names])
+
+    def l1(x):
+        return float(x.double().abs().sum())
+    state = [opt.adamw.state[p] for p in opt.params]
+    return {"count": opt.count,
+            "update_l1": {n: l1(p.detach() - b)
+                          for n, p, b in zip(names, opt.params, before)},
+            "mu_l1": {n: l1(st["exp_avg"]) for n, st in zip(names, state)},
+            "nu_l1": {n: l1(st["exp_avg_sq"]) for n, st in zip(names, state)}}
+
+
+def orbax_update_error(got: dict, want: dict) -> float:
+    """The largest relative error over every parameter's summed absolute
+    update and moments (fatal if the counts differ)."""
+    if got["count"] != want["count"]:
+        fail(f"orbax fixture update: count {got['count']}, JAX {want['count']}")
+    return max(abs(got[k][n] - w) / abs(w) for k in ("update_l1", "mu_l1", "nu_l1")
+               for n, w in want[k].items())
+
+
+def orbax_path(smi: str) -> dict:
+    """Phase 13: every step of the orbax fixture read with the port's reader
+    (host ms and MB/s), each leaf bit-equal to digests.json, the trees on
+    the card and back unchanged, load_checkpoint's params (the serving
+    route) those of the latest step, and each run's next update on the card
+    against JAX's and the CPU's."""
+    import torch
+    from dmm_net_tpu_torch.utils.checkpoint import (checkpoint_kind, latest_orbax_step,
+                                                    load_checkpoint, orbax_steps,
+                                                    read_orbax_step)
+    t_phase = time.perf_counter()
+    want = json.loads((ORBAX_FIXTURE / "digests.json").read_text())
+    steps = {}
+    for run, spec in want["runs"].items():
+        steps[run] = orbax_steps(str(ORBAX_FIXTURE / run))
+        if steps[run] != sorted(int(s) for s in spec["steps"]):
+            fail(f"orbax fixture {run}: steps {steps[run]}, expected "
+                 f"{sorted(spec['steps'])} (the unfinished save is not one)")
+    on_disk = sum(f.stat().st_size for run in steps for step in steps[run]
+                  for f in (ORBAX_FIXTURE / run / str(step)).rglob("*")
+                  if f.is_file())
+
+    def read_all():
+        """Every step read anew; (the trees, host seconds)."""
+        t0, trees = time.perf_counter(), {}
+        for run in steps:
+            for step in steps[run]:
+                try:
+                    trees[run, step] = read_orbax_step(str(ORBAX_FIXTURE / run), step)
+                except (RuntimeError, ValueError, KeyError) as e:
+                    fail(f"orbax fixture {run} step {step}: {e}")
+        return trees, time.perf_counter() - t0
+
+    trees, first = read_all()            # loads libzstd, files cold or warm
+    trees, secs = read_all()
+    decoded = 0
+    for (run, step), r in trees.items():
+        spec = want["runs"][run]["steps"][str(step)]
+        got = orbax_leaf_digests(r["state"])
+        bad = sorted(set(got) ^ set(spec["leaves"])) or [
+            p for p in sorted(got) if got[p] != spec["leaves"][p]]
+        if bad:
+            fail(f"orbax fixture {run} step {step}: leaf {bad[0]} differs from "
+                 f"digests.json ({got.get(bad[0])} vs {spec['leaves'].get(bad[0])})")
+        if r["extra"] != spec["extra"]:
+            fail(f"orbax fixture {run} step {step}: extra {r['extra']}, expected "
+                 f"{spec['extra']}")
+        leaves = []
+
+        def collect(node):
+            if isinstance(node, dict):
+                for v in node.values():
+                    collect(v)
+            elif isinstance(node, (tuple, list)):
+                for v in node:
+                    collect(v)
+            elif isinstance(node, torch.Tensor):
+                leaves.append(node)
+        collect(r["state"])
+        decoded += sum(t.numel() * t.element_size() for t in leaves)
+        on_card = [t.cuda() for t in leaves]
+        for t, c in zip(leaves, on_card):
+            if c.dtype != t.dtype or _raw_bytes(c) != _raw_bytes(t):
+                fail(f"orbax fixture {run} step {step}: a {t.dtype} leaf changed "
+                     "on its way to the card and back")
+    # the CLIs' route: infer_torch.py --ckpt serves load_checkpoint's params of
+    # the latest step; train_torch.py --resume asks checkpoint_kind and
+    # latest_orbax_step
+    for run in steps:
+        d = str(ORBAX_FIXTURE / run)
+        try:
+            kind, latest = checkpoint_kind(d), latest_orbax_step(d)
+            cfg, served = load_checkpoint(d)
+        except (RuntimeError, ValueError, KeyError) as e:
+            fail(f"orbax fixture {run}: load_checkpoint: {e}")
+        leaves = want["runs"][run]["steps"][str(steps[run][-1])]["leaves"]
+        params = {p: v for p, v in leaves.items() if p.startswith("params/")}
+        if (kind, latest, cfg, sorted(served)) != ("orbax", steps[run][-1], None,
+                                                   ["params"]) \
+                or orbax_leaf_digests({"params": served["params"]}) != params:
+            fail(f"orbax fixture {run}: load_checkpoint gave {kind}, step {latest}, "
+                 f"config {cfg}, {sorted(served)}, not the latest step's params")
+    n_leaves = sum(len(want["runs"][r]["steps"][str(s)]["leaves"]) for r, s in trees)
+    log(f"orbax reader: {len(trees)} steps, {n_leaves} leaves, {decoded / 1e6:.3f} "
+        f"MB decoded from {on_disk / 1e6:.3f} MB on disk in {secs * 1e3:.1f} ms "
+        f"host ({decoded / 1e6 / secs:.1f} MB/s decoded, {on_disk / 1e6 / secs:.1f} "
+        f"MB/s read; the first read, loading libzstd, {first * 1e3:.1f} ms) on "
+        f"{smi}; every leaf bit-equal to digests.json and unchanged through "
+        "the card")
+    updates = {}
+    for run, spec in want["runs"].items():
+        tree = trees[run, max(int(s) for s in spec["steps"])]["state"]
+        card = orbax_fixture_update(tree, spec, "cuda")
+        cpu = orbax_fixture_update(tree, spec, "cpu")
+        d_jax = orbax_update_error(card, spec["next"])
+        d_cpu = orbax_update_error(card, cpu)
+        log(f"orbax fixture {run}: next update on the card at count "
+            f"{card['count']}, max rel error {d_jax:.2e} against JAX, "
+            f"{d_cpu:.2e} against the CPU (limit {ORBAX_UPDATE_REL})")
+        if d_jax > ORBAX_UPDATE_REL or d_cpu > ORBAX_UPDATE_REL:
+            fail(f"orbax fixture {run}: next update off by {d_jax:.2e} from "
+                 f"JAX, {d_cpu:.2e} from the CPU")
+        updates[run] = {"count": card["count"], "rel_err_jax": d_jax,
+                        "rel_err_cpu": d_cpu}
+    seconds = time.perf_counter() - t_phase
+    log(f"phase 13: {seconds:.1f} s")
+    return {"steps": len(trees), "leaves": n_leaves, "decoded_mb": decoded / 1e6,
+            "on_disk_mb": on_disk / 1e6, "read_ms": secs * 1e3,
+            "first_read_ms": first * 1e3,
+            "decoded_mb_per_s": decoded / 1e6 / secs,
+            "read_mb_per_s": on_disk / 1e6 / secs, "updates": updates,
+            "seconds": seconds, "gpu": smi}
+
+
 def main() -> int:
     if not (ROOT / "dmm_net_tpu_torch" / "csrc").is_dir():
         fail("dmm_net_tpu_torch/ not found next to chip_smoke.py; run it from "
@@ -3765,6 +4003,8 @@ def main() -> int:
     tools12 = bench_tools_path()
     entry12 = graft_entry_path()
     mark("phase 12")
+    orbax13 = orbax_path(smi)
+    mark("phase 13")
     ab_l, ab_480 = ab11["ab_logits_res"]["launches"], ab11["ab_480p"]
     chain = chain11["stages"]
 
@@ -3949,7 +4189,7 @@ def main() -> int:
                       "bench_tools_12b": {k: {kk: vv for kk, vv in v.items()
                                               if kk != "result"}
                                           for k, v in tools12.items()},
-                      "graft_entry_12c": entry12}),
+                      "graft_entry_12c": entry12, "orbax_13": orbax13}),
           flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

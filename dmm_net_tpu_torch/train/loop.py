@@ -26,6 +26,7 @@ as the JAX package's mesh step does. DistributedDataParallel is not used:
 from __future__ import annotations
 
 import time
+import warnings
 from dataclasses import dataclass
 from typing import Dict, Iterable, List, Optional
 
@@ -41,7 +42,7 @@ from dmm_net_tpu_torch.ops.resize import resize
 from dmm_net_tpu_torch.parallel.mesh import Mesh, all_reduce_sum_, replicate_
 from dmm_net_tpu_torch.train.adamw import AdamW
 from dmm_net_tpu_torch.train.losses import clip_loss
-from dmm_net_tpu_torch.weights import load_flax_variables
+from dmm_net_tpu_torch.weights import convert_flax_variables, load_flax_variables
 
 
 def warmup_cosine_lr(cfg: Config, count: int) -> float:
@@ -128,6 +129,108 @@ class Optimizer:
         for d, s in zip(self.acc or [], sd["acc"] or []):
             d.copy_(s)
 
+    @torch.no_grad()
+    def load_optax_state(self, opt_state, model: torch.nn.Module) -> None:
+        """The state of the JAX package's make_optimizer
+        (dmm_net_tpu/train/loop.py:47)
+        over ``model``'s parameters, as read from an orbax checkpoint
+        (utils/checkpoint.read_orbax_state): ``(clip's EmptyState,
+        (ScaleByAdamState(count, mu, nu), add_decayed_weights' EmptyState,
+        ScaleByScheduleState(count)))``, the NamedTuples as dicts and the
+        empty states as None, inside ``MultiStepsState(mini_step,
+        gradient_step, inner_opt_state, acc_grads, skip_state=())`` when
+        ``train.grad_accum > 1``. Each moment and the accumulated gradient
+        take their parameter's name and layout through the weight bridge;
+        Adam's count sets AdamW's step and the LambdaLR's position. A tree
+        of another layout is refused at its first differing path, as are
+        counts that disagree."""
+        params = dict(model.named_parameters())
+        if [id(p) for p in params.values()] != [id(p) for p in self.params]:
+            raise ValueError("load_optax_state: the model's parameters are "
+                             "not this optimizer's")
+        inner = opt_state
+        if self.k > 1:
+            _match_layout(opt_state, {
+                "acc_grads": _ANY, "gradient_step": _SCALAR,
+                "inner_opt_state": _ANY, "mini_step": _SCALAR, "skip_state": ()},
+                "opt_state")
+            inner = opt_state["inner_opt_state"]
+        where = "opt_state" + ("/inner_opt_state" if self.k > 1 else "")
+        _match_layout(inner, (None, ({"count": _SCALAR, "mu": _ANY, "nu": _ANY},
+                                     None, {"count": _SCALAR})), where)
+        adam, schedule = inner[1][0], inner[1][2]
+        count = int(adam["count"])
+        counts = {"the schedule's count": int(schedule["count"])}
+        if self.k > 1:
+            counts["MultiSteps' gradient_step"] = int(opt_state["gradient_step"])
+        for name, c in counts.items():
+            if c != count:
+                raise ValueError(f"{where}: {name} {c} differs from Adam's "
+                                 f"count {count}")
+
+        def per_param(tree, name):
+            try:
+                sd = convert_flax_variables({"params": tree}, model)
+            except (KeyError, ValueError) as e:
+                raise ValueError(f"{name}: does not match the model's "
+                                 f"parameters: {e}") from None
+            return [sd[n] for n in params]
+
+        mu = per_param(adam["mu"], f"{where}/1/0/mu")
+        nu = per_param(adam["nu"], f"{where}/1/0/nu")
+        sd = self.adamw.state_dict()
+        sd["state"] = {i: {"step": torch.tensor(float(count)),
+                           "exp_avg": m, "exp_avg_sq": v}
+                       for i, (m, v) in enumerate(zip(mu, nu))}
+        self.adamw.load_state_dict(sd)
+        with warnings.catch_warnings():        # the LambdaLR to count (its lr)
+            warnings.filterwarnings("ignore", "Detected call of `lr_scheduler")
+            self.schedule.last_epoch = count - 1
+            self.schedule.step()
+        if self.k > 1:
+            mini = int(opt_state["mini_step"])
+            if not 0 <= mini < self.k:
+                raise ValueError(f"opt_state/mini_step {mini} is outside "
+                                 f"0..{self.k - 1}")
+            self.mini_step = mini
+            for a, g in zip(self.acc, per_param(opt_state["acc_grads"],
+                                                "opt_state/acc_grads")):
+                a.copy_(g)
+
+
+_ANY = object()          # a layout's subtree checked elsewhere
+_SCALAR = object()       # a 0-d tensor
+
+
+def _match_layout(tree, layout, path: str) -> None:
+    """Raise at the first path where ``tree`` differs from ``layout``: dicts
+    by their keys, tuples by their length, None for an empty state,
+    _SCALAR for a 0-d tensor, _ANY for any subtree."""
+    if layout is _ANY:
+        return
+    if layout is _SCALAR or layout is None:
+        ok = (tree is None if layout is None else
+              isinstance(tree, torch.Tensor) and tree.ndim == 0)
+        if not ok:
+            raise ValueError(f"{path}: expected "
+                             f"{'an empty state' if layout is None else 'a scalar'}"
+                             f", found {type(tree).__name__}")
+        return
+    if type(tree) is not type(layout) or len(tree) != len(layout):
+        raise ValueError(f"{path}: expected a {type(layout).__name__} of "
+                         f"{len(layout)}, found {type(tree).__name__}"
+                         + (f" of {len(tree)}" if hasattr(tree, "__len__")
+                            else ""))
+    if isinstance(layout, dict):
+        if sorted(tree) != sorted(layout):
+            raise ValueError(f"{path}: keys {sorted(tree)}, expected "
+                             f"{sorted(layout)}")
+        pairs = [(k, tree[k], layout[k]) for k in sorted(layout)]
+    else:
+        pairs = [(i, t, l) for i, (t, l) in enumerate(zip(tree, layout))]
+    for k, t, l in pairs:
+        _match_layout(t, l, f"{path}/{k}")
+
 
 @dataclass
 class TrainState:
@@ -157,6 +260,19 @@ def create_train_state(cfg: Config, seed: int = 0, variables=None,
             if isinstance(m, BatchNorm):
                 m.mesh = mesh
     return TrainState(model=model, optimizer=Optimizer(model.parameters(), cfg))
+
+
+def load_jax_train_state(state: TrainState, tree) -> TrainState:
+    """A TrainState of the JAX package's train.py, as read from its orbax
+    checkpoint directory (utils/checkpoint.read_orbax_step(...)["state"]:
+    step, params, batch_stats, opt_state), into ``state`` in place: the
+    parameters and BN statistics through the weight bridge, the optax
+    state into the Optimizer (``Optimizer.load_optax_state``), the step."""
+    load_flax_variables(state.model, {"params": tree["params"],
+                                      "batch_stats": tree["batch_stats"]})
+    state.optimizer.load_optax_state(tree["opt_state"], state.model)
+    state.step = int(tree["step"])
+    return state
 
 
 def _discard_bn_batch_stats(model: DMMNet) -> None:

@@ -7,7 +7,10 @@ statistics), the optimizer's state with its schedule, and the config dict
 (``Config.to_dict()``, the same dict a msgpack blob carries). Each file is
 written to a temporary name and renamed, so a crash never leaves a torn
 checkpoint; the last ``keep`` are kept. ``load_checkpoint`` reads either
-kind for serving.
+kind for serving, and the orbax directories of the JAX package's train.py
+(``<logdir>/ckpt/<step>/``: zarr v2 arrays in an OCDBT store, read by
+``read_zarr`` over utils/ocdbt.py), of whose latest step it reads the
+params alone; ``read_orbax_step`` returns a whole step for resuming.
 
 A checkpoint blob is ``{"config": Config.to_dict(), "variables": {"params",
 "batch_stats"}}`` serialised by ``flax.serialization.msgpack_serialize``:
@@ -30,16 +33,21 @@ both packages.
 
 from __future__ import annotations
 
+import copy
+import itertools
+import json
 import os
 import re
 import struct
 import zipfile
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Collection, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
 from dmm_net_tpu_torch.config import Config, config_from_dict
+from dmm_net_tpu_torch.utils import zstd
+from dmm_net_tpu_torch.utils.ocdbt import OcdbtStore
 
 _EXT_NDARRAY, _EXT_COMPLEX, _EXT_NPSCALAR = 1, 2, 3
 # fixed-width scalars: type byte -> struct format
@@ -262,13 +270,13 @@ def msgpack_restore(data: bytes):
 
 def load_msgpack_ckpt(path: str) -> Tuple[Optional[Config], dict]:
     """Load a checkpoint blob ``{"config", "variables"}``: returns (its
-    config, or None when it carries none; the variables). An orbax checkpoint
-    directory is refused (the port writes torch checkpoints: Checkpointer)."""
+    config, or None when it carries none; the variables). A blob is a file:
+    checkpoint directories (the port's, or orbax's) go to
+    ``load_checkpoint``."""
     if os.path.isdir(path):
         raise ValueError(
-            f"{path}: orbax checkpoint directories are not supported by the "
-            "port (ROADMAP.md §A, the no-port list); pass a flax msgpack "
-            "blob or a checkpoint written by the port's Checkpointer")
+            f"{path} is a directory, not a flax msgpack blob; load_checkpoint "
+            "reads the port's and orbax's checkpoint directories")
     with open(path, "rb") as f:
         blob = msgpack_restore(f.read())
     if not isinstance(blob, dict) or "variables" not in blob:
@@ -330,16 +338,199 @@ class Checkpointer:
         return state
 
 
+# -- orbax checkpoint directories (the JAX package's train.py) ---------------
+
+# the zarr v2 dtypes orbax writes for the JAX package's TrainState -> (numpy
+# dtype of the raw bytes, torch dtype); bfloat16, which numpy cannot hold,
+# is read as its 16 bits and viewed by torch
+_ZARR_DTYPES = {"<f4": (np.float32, torch.float32), "<i4": (np.int32, torch.int32),
+                "<i8": (np.int64, torch.int64), "bfloat16": (np.int16, torch.bfloat16)}
+_EMPTY_NODES = {"None": None, "Dict": {}, "Tuple": (), "List": []}
+_ARRAY_TYPES = ("jax.Array", "np.ndarray", "scalar")
+_DICT_KEY, _SEQUENCE_INDEX = 2, 1
+
+
+def read_zarr(store: OcdbtStore, name: str) -> torch.Tensor:
+    """The zarr v2 array ``name`` of an OCDBT store, as orbax writes one:
+    ``<name>/.zarray`` and its zstd-compressed chunks ``<name>/<i>.<j>...``
+    (``<name>/0`` for a scalar), assembled in C order; a chunk the store
+    does not hold is refused, as orbax refuses it. Returns a CPU tensor of
+    the stored dtype."""
+    raw = store.read(f"{name}/.zarray")
+    if raw is None:
+        raise KeyError(f"zarr: no array {name!r} in {store.root}")
+    meta = json.loads(raw)
+    if meta.get("zarr_format") != 2 or meta.get("order", "C") != "C" \
+            or meta.get("filters"):
+        raise ValueError(f"zarr: {name}: only zarr v2 arrays in C order with "
+                         f"no filters are read, not {meta}")
+    if meta["dtype"] not in _ZARR_DTYPES:
+        raise ValueError(f"zarr: {name}: dtype {meta['dtype']!r} is not read "
+                         f"(only {', '.join(_ZARR_DTYPES)})")
+    compressor = meta.get("compressor")
+    if (compressor or {}).get("id") != "zstd":
+        raise ValueError(f"zarr: {name}: compressor {compressor} is not read "
+                         "(only zstd)")
+    np_dtype, torch_dtype = _ZARR_DTYPES[meta["dtype"]]
+    shape, chunks = tuple(meta["shape"]), tuple(meta["chunks"])
+    if len(chunks) != len(shape) or any(c <= 0 for c in chunks):
+        raise ValueError(f"zarr: {name}: chunks {chunks} for shape {shape}")
+    sep = meta.get("dimension_separator", ".")
+    out = np.empty(shape, np_dtype)
+    chunk_bytes = int(np.prod(chunks, dtype=np.int64)) * out.itemsize
+    grid = [range(-(-s // c)) for s, c in zip(shape, chunks)]
+    for idx in itertools.product(*grid):
+        key = f"{name}/{sep.join(map(str, idx)) if idx else '0'}"
+        region = tuple(slice(i * c, min((i + 1) * c, s))
+                       for i, c, s in zip(idx, chunks, shape))
+        data = store.read(key)
+        if data is None:         # orbax reads with fill_missing_data_reads off
+            raise ValueError(f"zarr: chunk {key} is missing from {store.root}")
+        data = zstd.decompress(data, size=chunk_bytes)
+        block = np.frombuffer(data, np_dtype).reshape(chunks)
+        out[region] = block[tuple(slice(0, r.stop - r.start) for r in region)]
+    t = torch.from_numpy(out)
+    return t.view(torch.bfloat16) if torch_dtype is torch.bfloat16 else t
+
+
+def orbax_steps(directory: str) -> List[int]:
+    """The finished steps of an orbax CheckpointManager directory, as orbax
+    finds them: subdirectories named by an integer that hold
+    ``_CHECKPOINT_METADATA``. A save still running (or cut) writes under
+    ``<step>.orbax-checkpoint-tmp-<n>``, which is not a step."""
+    if not os.path.isdir(directory):
+        return []
+    return sorted(int(d) for d in os.listdir(directory)
+                  if d.isdigit() and os.path.isfile(
+                      os.path.join(directory, d, "_CHECKPOINT_METADATA")))
+
+
+def latest_orbax_step(directory: str) -> Optional[int]:
+    steps = orbax_steps(directory)
+    return steps[-1] if steps else None
+
+
+def _insert(tree: dict, keys, value, where: str) -> None:
+    """Place ``value`` at ``keys`` (orbax key metadata: dict keys and
+    sequence indices) in a nested dict; sequences are dicts keyed by int
+    until ``_sequences`` turns them into tuples."""
+    node = tree
+    for depth, k in enumerate(keys):
+        kind, key = k["key_type"], k["key"]
+        if kind == _SEQUENCE_INDEX:
+            key = int(key)
+        elif kind != _DICT_KEY:
+            raise ValueError(f"orbax: {where}: key type {kind} (only dict "
+                             "keys (2) and sequence indices (1) are read)")
+        tag = "seq" if kind == _SEQUENCE_INDEX else "dict"
+        if node.setdefault("__kind__", tag) != tag:
+            raise ValueError(f"orbax: {where}: a node is both a dict and a "
+                             "sequence")
+        if depth == len(keys) - 1:
+            if key in node:
+                raise ValueError(f"orbax: {where} appears twice")
+            node[key] = value
+        else:
+            node = node.setdefault(key, {})
+
+
+def _sequences(node):
+    if not isinstance(node, dict) or "__kind__" not in node:
+        return node
+    kind = node.pop("__kind__")
+    children = {k: _sequences(v) for k, v in node.items()}
+    if kind == "dict":
+        return children
+    if sorted(children) != list(range(len(children))):
+        raise ValueError(f"orbax: sequence indices {sorted(children)} are "
+                         "not 0..n-1")
+    return tuple(children[i] for i in range(len(children)))
+
+
+def read_orbax_state(item_dir: str,
+                     keys: Optional[Collection[str]] = None) -> Any:
+    """One StandardSave item of an orbax step (``<step>/state``): its tree
+    rebuilt from ``_METADATA`` (dicts for dict keys, tuples for sequence
+    indices; optax's NamedTuple states are recorded as dicts) with CPU
+    tensors at the array leaves, Python numbers at scalar leaves and None,
+    {}, (), [] where orbax recorded an empty node. With ``keys``, only the
+    leaves under those top-level keys are read (serving reads "params")."""
+    with open(os.path.join(item_dir, "_METADATA")) as f:
+        meta = json.load(f)
+    if meta.get("use_zarr3") or not meta.get("use_ocdbt", False):
+        raise ValueError(f"orbax: {item_dir}: only OCDBT stores of zarr v2 "
+                         "arrays are read (use_ocdbt true, use_zarr3 false)")
+    store = OcdbtStore(item_dir)
+    tree: dict = {}
+    for where, leaf in meta["tree_metadata"].items():
+        path = leaf["key_metadata"]
+        if keys is not None and path[0]["key"] not in keys:
+            continue
+        vtype = leaf["value_metadata"]["value_type"]
+        if vtype in _EMPTY_NODES:
+            value = copy.copy(_EMPTY_NODES[vtype])
+        elif vtype in _ARRAY_TYPES:
+            value = read_zarr(store, ".".join(k["key"] for k in path))
+            if vtype == "scalar":
+                value = value.item()
+        else:
+            raise ValueError(f"orbax: {where}: value type {vtype!r} is not "
+                             "read")
+        _insert(tree, path, value, where)
+    return _sequences(tree) if tree else {}
+
+
+def read_orbax_step(directory: str, step: int,
+                    keys: Optional[Collection[str]] = None) -> Dict[str, Any]:
+    """Step ``step`` of an orbax CheckpointManager directory, as the JAX
+    package's Checkpointer saves it: ``{"state": the TrainState tree (step,
+    params, batch_stats, opt_state; those in ``keys`` alone where given),
+    "extra": the JSON item or None}``."""
+    step_dir = os.path.join(directory, str(step))
+    if not os.path.isfile(os.path.join(step_dir, "_CHECKPOINT_METADATA")):
+        raise FileNotFoundError(f"orbax: no finished step {step} under "
+                                f"{directory}")
+    extra = None
+    extra_path = os.path.join(step_dir, "extra", "metadata")
+    if os.path.isfile(extra_path):
+        with open(extra_path) as f:
+            extra = json.load(f)
+    return {"state": read_orbax_state(os.path.join(step_dir, "state"), keys),
+            "extra": extra}
+
+
+def checkpoint_kind(directory: str) -> Optional[str]:
+    """What a checkpoint directory holds: ``"torch"`` (the port's
+    ``step_<n>.pt`` files), ``"orbax"`` (finished orbax steps) or None
+    (neither, or no such directory). One that holds both is refused."""
+    torch_steps = Checkpointer(directory).latest_step() is not None
+    orbax = bool(orbax_steps(directory))
+    if torch_steps and orbax:
+        raise ValueError(f"{directory} holds both the port's step_<n>.pt "
+                         "checkpoints and orbax step directories; keep one "
+                         "kind per directory")
+    return "torch" if torch_steps else "orbax" if orbax else None
+
+
 def load_checkpoint(path: str) -> Tuple[Optional[Config], Dict[str, Any]]:
-    """A checkpoint for serving: returns (its config or None, and either
+    """A checkpoint for serving: returns (its config or None, and one of
     ``{"state_dict": ...}`` for the port's torch checkpoints (a file, or a
-    Checkpointer directory, whose latest step is taken) or
+    Checkpointer directory, whose latest step is taken), ``{"params": ...}``
+    for an orbax directory of the JAX package's train.py (its latest step's
+    params alone, as infer.py restores them; it carries no config) or
     ``{"variables": ...}`` for a JAX-package msgpack blob)."""
     if os.path.isdir(path):
-        step = Checkpointer(path).latest_step()
-        if step is None:
-            return load_msgpack_ckpt(path)     # refuses other directories
-        path = Checkpointer(path).path(step)
+        kind = checkpoint_kind(path)
+        if kind is None:
+            raise ValueError(f"{path} holds neither the port's step_<n>.pt "
+                             "checkpoints nor finished orbax step directories")
+        if kind == "orbax":
+            step = latest_orbax_step(path)
+            state = read_orbax_step(path, step, keys=("params",))["state"]
+            if "params" not in state:
+                raise ValueError(f"{path}: orbax step {step} holds no params")
+            return None, {"params": state["params"]}
+        path = Checkpointer(path).path(Checkpointer(path).latest_step())
     if zipfile.is_zipfile(path):
         ckpt = torch.load(path, map_location="cpu", weights_only=True)
         return config_from_dict(ckpt["config"]), {"state_dict": ckpt["model"]}

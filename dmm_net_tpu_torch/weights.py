@@ -70,7 +70,8 @@ def convert_flax_variables(variables, model: Optional[torch.nn.Module] = None
                            ) -> Dict[str, torch.Tensor]:
     """{"params", "batch_stats"} nested numpy dicts -> float32 state_dict.
     With ``model``, also checks that the keys and shapes are exactly the
-    model's parameters and buffers."""
+    model's parameters and buffers (its parameters alone when only
+    "params" is given)."""
     extra = set(variables) - set(_LEAVES)
     if extra:
         raise KeyError(f"unknown variable collections {sorted(extra)}")
@@ -102,7 +103,11 @@ def convert_flax_variables(variables, model: Optional[torch.nn.Module] = None
                 raise KeyError(f"{coll}/{'/'.join(path)} maps onto {key!r} twice")
             sd[key] = torch.tensor(np.ascontiguousarray(arr), dtype=torch.float32)
     if model is not None:
-        want = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+        # the model's entries of the collections given ("params" alone for
+        # an optimizer's per-parameter state)
+        params = {n for n, _ in model.named_parameters()}
+        want = {k: tuple(v.shape) for k, v in model.state_dict().items()
+                if ("params" if k in params else "batch_stats") in variables}
         missing = sorted(set(want) - set(sd))
         left = sorted(set(sd) - set(want))
         if missing or left:

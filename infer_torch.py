@@ -15,7 +15,12 @@ A checkpoint carries its own model config, which becomes the base config;
 --set overrides apply on top. --ckpt takes a msgpack blob {"config",
 "variables"} (the JAX package's format), a torch checkpoint written by the
 port's trainer (train_torch.py: <logdir>/ckpt/step_<n>.pt), or that
-checkpoint directory (its latest step). Without --ckpt the weights are random (seed 0).
+checkpoint directory (its latest step), or an orbax checkpoint directory
+of the JAX package's train.py (<logdir>/ckpt). Without --ckpt the weights
+are random (seed 0). From an orbax directory, as infer.py serves one: the
+latest step's params alone, over the BN statistics (batch_stats) of the
+seeded init, which stay as the init made them (mean 0, variance 1), and the
+config from --preset / --set, since the directory carries none.
 The default dispatch runs K frames per chunk (--chunk); --per-frame runs
 one frame step at a time and is forced for matching.decode=hungarian. Every
 stream is staged ahead of the engine by data/pipeline.RingStager (decode on
@@ -70,8 +75,8 @@ def main(argv=None):
     ap.add_argument("--split", default=None)
     ap.add_argument("--proposal-dir", default=None)
     ap.add_argument("--ckpt", default=None,
-                    help="flax msgpack blob, or a train_torch.py checkpoint "
-                    "(file or directory)")
+                    help="flax msgpack blob, a train_torch.py checkpoint "
+                    "(file or directory), or train.py's orbax directory")
     ap.add_argument("--out", default="results/default")
     ap.add_argument("--sequences", nargs="*", default=None)
     ap.add_argument("--no-eval", action="store_true")
@@ -96,6 +101,7 @@ def main(argv=None):
     from dmm_net_tpu_torch.parallel import launch, make_mesh, visible_ranks
     from dmm_net_tpu_torch.utils.checkpoint import load_checkpoint
     from dmm_net_tpu_torch.utils.cli import parse_overrides
+    from dmm_net_tpu_torch.weights import to_flax_variables
 
     logging.basicConfig(format="%(asctime)s infer_torch %(levelname)s: "
                         "%(message)s", level=logging.INFO)
@@ -146,12 +152,14 @@ def main(argv=None):
         if not seqs:
             raise SystemExit(f"no videos found under {args.ytvos_root}")
     device = args.device if mesh is None else mesh.device
-    model = None
+    model, variables = None, loaded.get("variables")
     if "state_dict" in loaded:
         model = DMMNet(cfg, device=device)
         model.load_state_dict(loaded["state_dict"])
-    engine = InferenceEngine(cfg, model=model,
-                             variables=loaded.get("variables"),
+    elif "params" in loaded:                # an orbax directory: params alone
+        model = DMMNet(cfg, device=device)
+        variables = {**to_flax_variables(model), "params": loaded["params"]}
+    engine = InferenceEngine(cfg, model=model, variables=variables,
                              update_templates=not args.no_template_update,
                              mesh=mesh, device=device)
 

@@ -914,3 +914,54 @@ def test_cuda_mesh_nccl_across_cards(cuda_kernels):
         iter(items), tmpl, valid, frames[0], chunk=8)
     for o in r:
         assert (o["stream"]["labels"] != single["labels"]).mean() < 1e-3
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+
+
+def _tensors_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tensors_to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_tensors_to(v, device) for v in tree)
+    return tree.to(device) if isinstance(tree, torch.Tensor) else tree
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("run", ["accum1", "accum2"])
+def test_cuda_orbax_fixture_restores_onto_the_card(cuda_device, run):
+    """chip_smoke.py phase 13's fixture, read by the port's orbax reader:
+    every step's tree on the card equals the CPU restore bit for bit, and
+    the committed digests."""
+    import json
+    import chip_smoke as cs
+    from dmm_net_tpu_torch.utils.checkpoint import orbax_steps, read_orbax_step
+    want = json.loads((cs.ORBAX_FIXTURE / "digests.json").read_text())["runs"][run]
+    d = str(cs.ORBAX_FIXTURE / run)
+    for step in orbax_steps(d):
+        cpu = read_orbax_step(d, step)["state"]
+        card = _tensors_to(cpu, "cuda")
+        assert card["params"]["Conv_0"]["kernel"].is_cuda
+        assert cs.orbax_leaf_digests(card) == cs.orbax_leaf_digests(cpu) == \
+            want["steps"][str(step)]["leaves"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("run", ["accum1", "accum2"])
+def test_cuda_orbax_fixture_update_matches_cpu(cuda_device, run):
+    """Phase 13's optimizer update (the fixture's optax state in the port's
+    Optimizer, one update) on the card against the same update on the CPU
+    and against JAX's."""
+    import json
+    import chip_smoke as cs
+    from dmm_net_tpu_torch.utils.checkpoint import orbax_steps, read_orbax_step
+    spec = json.loads((cs.ORBAX_FIXTURE / "digests.json").read_text())["runs"][run]
+    d = str(cs.ORBAX_FIXTURE / run)
+    tree = read_orbax_step(d, orbax_steps(d)[-1])["state"]
+    card = cs.orbax_fixture_update(tree, spec, "cuda")
+    cpu = cs.orbax_fixture_update(tree, spec, "cpu")
+    assert cs.orbax_update_error(card, cpu) <= cs.ORBAX_UPDATE_REL
+    assert cs.orbax_update_error(card, spec["next"]) <= cs.ORBAX_UPDATE_REL

@@ -153,9 +153,10 @@ def test_engine_defaults_to_cuda():
 def test_engine_rejects_unported_paths(tmp_path):
     """What the engine and the CLI refuse: a mesh that is not a
     parallel.mesh.Mesh, --per-frame with --data-parallel (as infer.py
-    does), and orbax checkpoint directories, which stay unported and name
-    ROADMAP.md."""
-    from dmm_net_tpu_torch.utils.checkpoint import load_msgpack_ckpt
+    does), and a checkpoint directory that holds neither the port's
+    checkpoints nor orbax steps (tests/test_torch_port_orbax.py has the
+    orbax directories the port reads)."""
+    from dmm_net_tpu_torch.utils.checkpoint import load_checkpoint
     cfg = config_from_dict(_slice_cfg("float32").to_dict())
     with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         InferenceEngine(cfg, mesh=object(), device="cpu")
@@ -164,8 +165,9 @@ def test_engine_rejects_unported_paths(tmp_path):
                        cwd=str(tmp_path), capture_output=True, text=True,
                        timeout=300)
     assert r.returncode != 0 and "exclusive" in r.stderr, r.stderr[-2000:]
-    with pytest.raises(ValueError, match="ROADMAP"):
-        load_msgpack_ckpt(str(tmp_path))
+    (tmp_path / "empty").mkdir()
+    with pytest.raises(ValueError, match="holds neither"):
+        load_checkpoint(str(tmp_path / "empty"))
 
 
 def test_port_imports_no_jax():
@@ -194,7 +196,8 @@ def test_port_imports_no_jax():
             "    s = u.spec_from_file_location('x', f)\n"
             "    s.loader.exec_module(u.module_from_spec(s))\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'flax', 'optax', 'cv2', 'dmm_net_tpu')]\n"
+            "('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'tensorstore', "
+            "'zstandard', 'cv2', 'dmm_net_tpu')]\n"
             "assert not bad, bad\n"
             "from dmm_net_tpu_torch.data import native_loader\n"
             "from dmm_net_tpu_torch.ops import rle\n"

@@ -18,6 +18,14 @@ data seed by its step, as train.py does, so it sees the batches an
 uninterrupted run would have seen. Runs on CUDA unless --device says
 otherwise.
 
+--resume also continues a run of the JAX package's train.py: when
+<logdir>/ckpt holds its orbax steps, the latest one's step, parameters, BN
+statistics and optax state (Adam's moments and count, the schedule's
+position, MultiSteps' accumulation under train.grad_accum > 1) are
+restored (train/loop.load_jax_train_state), and the port writes its own
+checkpoints to <logdir>/ckpt_torch, from which a later --resume continues.
+The config comes from --preset / --set, as for train.py.
+
 --data-parallel N trains on a mesh of N ranks (0: one per visible card;
 a mesh only when N > 1; data.batch_size must divide over N). Every rank
 builds the same global batches and stages its own rows, and the gradients
@@ -92,8 +100,12 @@ def main(argv=None):
     from dmm_net_tpu_torch.data.augment import augment_batch
     from dmm_net_tpu_torch.data.pipeline import Prefetcher
     from dmm_net_tpu_torch.parallel import launch, make_mesh, visible_ranks
-    from dmm_net_tpu_torch.train.loop import create_train_state, train_loop
-    from dmm_net_tpu_torch.utils.checkpoint import Checkpointer
+    from dmm_net_tpu_torch.train.loop import (create_train_state,
+                                              load_jax_train_state, train_loop)
+    from dmm_net_tpu_torch.utils.checkpoint import (Checkpointer,
+                                                    checkpoint_kind,
+                                                    latest_orbax_step,
+                                                    read_orbax_step)
     from dmm_net_tpu_torch.utils.cli import parse_overrides
     from dmm_net_tpu_torch.utils.logging import MetricsWriter
 
@@ -115,11 +127,21 @@ def main(argv=None):
     log = logging.getLogger("train_torch")
     steps = args.steps or cfg.train.total_steps
 
-    # the resume step fixes the stream's position before the stream is built
-    ckpt = Checkpointer(os.path.join(args.logdir, "ckpt"))
-    start_step = 0
+    # the resume step fixes the stream's position before the stream is built;
+    # train.py's orbax steps in <logdir>/ckpt resume the port, which keeps
+    # its own checkpoints beside them, in <logdir>/ckpt_torch
+    jax_dir = os.path.join(args.logdir, "ckpt")
+    try:
+        orbax = checkpoint_kind(jax_dir) == "orbax"
+    except ValueError as e:
+        raise SystemExit(str(e))
+    ckpt = Checkpointer(os.path.join(args.logdir, "ckpt_torch") if orbax
+                        else jax_dir)
+    start_step, jax_step = 0, None
     if args.resume and ckpt.latest_step() is not None:
         start_step = int(ckpt.latest_step())
+    elif args.resume and orbax:
+        start_step = jax_step = latest_orbax_step(jax_dir)
     if start_step >= steps:
         raise SystemExit(f"nothing to do: resumed at step {start_step} >= "
                          f"--steps {steps}")
@@ -127,7 +149,11 @@ def main(argv=None):
 
     state = create_train_state(cfg, seed=cfg.train.seed, device=args.device,
                                mesh=mesh)
-    if start_step:
+    if jax_step is not None:
+        load_jax_train_state(state, read_orbax_step(jax_dir, jax_step)["state"])
+        log.info("resumed at step %d from train.py's orbax checkpoint %s",
+                 state.step, jax_dir)
+    elif start_step:
         ckpt.restore(state)
         log.info("resumed at step %d", state.step)
     log.info("config %s, steps %d..%d on %s%s", cfg.name, start_step, steps,
